@@ -2,21 +2,33 @@
 
     python3 chip_smoke.py
 
-Drives ``img_env_tpu_torch`` through its user entry points at the bench200
-configuration (bench.py:31-56: 200 robots, 200 obstacles, 16 m room at
-0.015 m, 400x400 views, 960-beam lasers, MPPI K=128 H=12):
+Drives ``img_env_tpu_torch`` through its user entry points at the bench
+configurations: bench200 (bench.py:31-56: 200 robots, 200 obstacles, 16 m
+room at 0.015 m, 400x400 views, 960-beam lasers, MPPI K=128 H=12) and the
+crowd line bench200ped (bench.py:362-389: the same 200 robots with no
+obstacles and 200 SFM leg pedestrians):
 
   1. versions and the card (nvidia-smi name, power limit);
-  2. builds the CUDA kernels from ``img_env_tpu_torch/csrc``;
-  3. NavEnv(cfg, "cuda") + MpcController, reset;
-  4. holds each kernel (K1 raster, K2 FOV fill, K3 painter) bit-equal to its
-     plain-torch twin at the production shapes, and times both;
-  5. reset + 23 control steps (act, then step) with launch counts, the
-     bench.py checksum and ms/step; one step runs with host syncs made
-     errors (torch.cuda.set_sync_debug_mode);
-  6. the small test config on the card vs the same port on the CPU (the
-     CPU port is held to the JAX package by tests/test_torch_*.py).
+  2. builds the five CUDA kernels from ``img_env_tpu_torch/csrc`` (one
+     nvcc per source, in parallel);
+  3. NavEnv(cfg, "cuda") + MpcController for bench200 and bench200ped;
+  4. holds each kernel bit-equal to its plain-torch twin at the production
+     shapes and times both: K1 raster, K2 FOV fill, K3 painter and K5
+     gen-1 painter at bench200, K4 ped map at bench200ped (its reset, and a
+     copy with forced ties and peds on the window edge);
+  5. the bench200 path: reset + control steps (act, then step);
+  6. the crowd path: bench200ped reset + 3 warm-up and 20 timed control
+     steps, the bench.py crowd checksum; every step launches K1-K4, and
+     the last warm-up step runs with host syncs made errors
+     (torch.cuda.set_sync_debug_mode);
+  7. the block-painter path: bench200 with paint_mode='block', reset + 3
+     steps through K5 (never K3), its sensor maps and lasers equal to the
+     default env's from one state;
+  8. the small test configs, without and with pedestrians, on the card vs
+     the same port on the CPU (the CPU port is held to the JAX package by
+     tests/test_torch_*.py).
 
+Each path's launch counts are set to 0 just before it and read just after.
 Any failed phase raises.  Prints the kernels' JSON line, then as its last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
 """
@@ -57,6 +69,32 @@ BENCH200 = {
     "state_dim": 3,
 }
 
+BENCH200PED = {
+    "env_name": "bench200ped",
+    "control_hz": 0.4,
+    "robot": dict(total=200, shape=["circle"],
+                  size=[[0.0, 0.0, 0.17]],
+                  begin_poses_type=["range"],
+                  begin_poses=[[0.5, 15.5, 0.5, 15.5]],
+                  target_poses_type=["range"],
+                  target_poses=[[0.5, 15.5, 0.5, 15.5]]),
+    "object": dict(total=0),
+    "ped_sim": dict(total=200, type="pedscene",
+                    max_speed=[0.5], shape=["leg"],
+                    size=[[0.0, 0.1, 0.1]],
+                    begin_poses_type=["range"],
+                    begin_poses=[[0.5, 15.5, 0.5, 15.5]],
+                    target_poses_type=["range"],
+                    target_poses=[[0.5, 15.5, 0.5, 15.5]],
+                    go_back="yes"),
+    "global_map": {"map_file": "room_16_empty.png",
+                   "resolution": 0.1},
+    "view_map": {"resolution": 0.015, "width": 6.0,
+                 "height": 6.0},
+    "range_total": 960, "max_ped": 10, "state_dim": 3,
+    "sensor_mode": "parity",
+}
+
 SMALL = {
     "robot": {"total": 4, "shape": ["circle"], "size": [[0.0, 0.0, 0.17]],
               "begin_poses_type": ["range"],
@@ -73,10 +111,24 @@ SMALL = {
     "max_ped": 4,
 }
 
+SMALL_PED = dict(SMALL, robot=dict(SMALL["robot"], total=2),
+                 object=dict(SMALL["object"], total=2),
+                 ped_sim={"total": 2, "type": "pedscene", "max_speed": [0.5],
+                          "shape": ["leg", "circle"],
+                          "size": [[0, 0.1, 0.1], [0, 0, 0.17]],
+                          "begin_poses_type": ["range"],
+                          "begin_poses": [[2.0, 9.0, 2.0, 9.0]],
+                          "target_poses_type": ["range"],
+                          "target_poses": [[2.0, 9.0, 2.0, 9.0]],
+                          "go_back": "yes"},
+                 ped_image_size=[48, 48])
+
 K = 128
 H = 12
 WARMUP = 3
-ITERS = 20
+ITERS = 20          # timed crowd steps
+BENCH_ITERS = 10    # timed bench200 steps
+BLOCK_STEPS = 3     # block-painter steps
 
 
 def log(msg: str) -> None:
@@ -170,20 +222,178 @@ def selfcheck(env, state):
         t.painter, s_hit, s_tail, st.painter.n_slots), 20),
         cuda_ms(lambda: painter.paint_sorted(st.painter, t.painter, s_hit,
                                              s_tail), 3))
+
+    # K5: the same thresholds through the gen-1 64-slot blocks; its twin
+    # is the same dense decode
+    tb = painter.make_painter_tables(
+        st.painter, painter.PaintBlocks.build(st.painter, s_hit.shape[1]),
+        poses.device)
+    v_b = painter.paint_blocks_kernel(tb, s_hit, s_tail, st.painter.n_slots)
+    mism = int((v_b != v_t).sum())
+    log(f"# K5 block paint: {mism} mismatched slots of {v_b.numel()} "
+        f"({tb.rows[0].shape[0]} blocks, {tb.rows[4].shape[0]} window rows)")
+    if mism:
+        raise AssertionError("K5 block paint kernel != twin")
+    out["paint_block"] = (
+        float((v_b - v_t).abs().max()),
+        cuda_ms(lambda: painter.paint_blocks_kernel(
+            tb, s_hit, s_tail, st.painter.n_slots), 20),
+        cuda_ms(lambda: painter.paint_sorted(st.painter, tb, s_hit, s_tail),
+                3))
     return out
 
 
-def small_reference(device):
-    """The small test config on the card vs the same port on the CPU, from
+def selfcheck_pedmap(env, state):
+    """K4 against its twin on the crowd reset's base-frame peds (N = M =
+    200), and on a copy with forced ties (every odd ped stacked on its even
+    neighbour), peds on the +-3 m window edge and on the robot; returns
+    (max_abs_err, ms, plain_ms)."""
+    from img_env_tpu_torch.env import observe
+    from img_env_tpu_torch.ops import pedmap
+
+    cfg = env.cfg
+    hs, r_img = int(cfg.ped_image_size[0]), float(cfg.ped_image_r)
+    res = 6.0 / hs
+    pos = state.peds.pos
+    vel = state.peds.vel + 0.25          # reset velocities are all 0
+    stacked = pos.clone()
+    stacked[1::2] = stacked[0::2]
+    reset = observe.peds_in_base(state.robots.pose, pos, vel)
+    px, py, vx, vy = (x.clone() for x in observe.peds_in_base(
+        state.robots.pose, stacked, vel))
+    px[:, 100:120:2] = 3.0                 # on the window's +x edge
+    py[:, 120:140:2] = -3.0                # on its -y edge
+    px[:, 140:150] = 0.0                   # on the robot (range 0)
+    py[:, 140:150] = 0.0
+    px[:, 150:160], py[:, 150:160] = 1.0, 0.5   # a ten-way tie
+    err = 0.0
+    for base in (reset, (px, py, vx, vy)):
+        got = pedmap.ped_map_kernel(*base, res, r_img, hs)
+        want = pedmap.ped_map_twin(*base, res, r_img, hs)
+        mism = int((got != want).sum())
+        err = max(err, float((got - want).abs().max()))
+        log(f"# K4 ped map: {mism} mismatched of {got.numel()}, "
+            f"{int(got[:, 0].sum())} occupied pixels")
+        if mism:
+            raise AssertionError("K4 ped-map kernel != twin")
+    return (err, cuda_ms(lambda: pedmap.ped_map_kernel(*base, res, r_img,
+                                                       hs), 50),
+            cuda_ms(lambda: pedmap.ped_map_twin(*base, res, r_img, hs), 5))
+
+
+def run_path(env, ctl, warmup: int, iters: int, must_launch, never=(),
+             crowd: bool = False):
+    """Reset + ``warmup`` + ``iters`` control steps (act, then step) with
+    the launch counts set to 0 just before and read just after.  Every
+    step must launch each kernel of ``must_launch`` and none of ``never``;
+    the last warm-up step runs with host syncs made errors.  Returns
+    (reset state, state, ms/step, launches, checksum, obs)."""
+    from img_env_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    state, obs = env.reset()
+    state0 = state
+    mpc_state = ctl.init_state()
+    checksum = torch.zeros((), dtype=torch.float64, device=env.device)
+    cost_sum = torch.zeros((), dtype=torch.float64, device=env.device)
+
+    def control_step(state, mpc_state):
+        before = dict(kernels.LAUNCHES)
+        actions, mpc_state, costs = ctl.act(state, mpc_state)
+        state, obs, reward, done, info = env.step(state, actions)
+        chk = obs.sensor_maps.sum() + obs.lasers.sum()
+        if crowd:   # bench.py:410-412: every crowd observation surface
+            chk = (chk + obs.ped_vector_states.sum() + obs.ped_maps.sum()
+                   + obs.ped_min_dists.sum())
+        else:
+            chk = chk + obs.vector_states.sum()
+        idle = [k for k in must_launch if kernels.LAUNCHES[k] == before[k]]
+        bad = [k for k in never if kernels.LAUNCHES[k] != before[k]]
+        if idle or bad:
+            raise AssertionError(f"a control step launched no {idle} / "
+                                 f"launched {bad}")
+        return state, mpc_state, obs, chk, costs.sum()
+
+    for i in range(warmup):
+        # the last warm-up step runs with host syncs made errors: act and
+        # step must stay capturable in a CUDA graph
+        torch.cuda.set_sync_debug_mode("error" if i == warmup - 1 else 0)
+        state, mpc_state, obs, chk, c = control_step(state, mpc_state)
+        checksum += chk
+        cost_sum += c
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, mpc_state, obs, chk, c = control_step(state, mpc_state)
+        checksum += chk
+        cost_sum += c
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / max(iters, 1) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    if not (bool(torch.isfinite(checksum)) and bool(torch.isfinite(cost_sum))):
+        raise AssertionError("non-finite checksum or MPC costs")
+    return state0, state, ms_step, launches, float(checksum), obs
+
+
+def check_shapes(obs, expect):
+    for f, shape in expect.items():
+        x = getattr(obs, f)
+        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"bad {f} {tuple(x.shape)}")
+
+
+def block_path(cfg_dict, env_default):
+    """BENCH200 with paint_mode='block': reset + BLOCK_STEPS steps through
+    K5 and never K3; then, from that state, the block env's sensor maps
+    and lasers equal the default env's (K3) bit for bit."""
+    from img_env_tpu_torch import EnvConfig, NavEnv
+    from img_env_tpu_torch.ops import kernels
+
+    env = NavEnv(EnvConfig.from_dict(dict(cfg_dict, paint_mode="block")),
+                 env_default.device)
+    kernels.reset_launch_counts()
+    state, obs = env.reset()
+    n = env.cfg.robot.total
+    act = torch.zeros((n, 3), device=env.device)
+    act[:, 0] = 0.4
+    act[:, 1] = 0.3
+    for _ in range(BLOCK_STEPS):
+        before = dict(kernels.LAUNCHES)
+        state, obs, *_ = env.step(state, act)
+        if (kernels.LAUNCHES["paint_block"] == before["paint_block"]
+                or kernels.LAUNCHES["paint"] != before["paint"]):
+            raise AssertionError("block path: a step did not run K5 alone")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    _, o_b = env._observe(state)
+    _, o_d = env_default._observe(state)
+    for f in ("sensor_maps", "lasers", "is_collisions"):
+        mism = int((getattr(o_b, f) != getattr(o_d, f)).sum())
+        log(f"# block path: {f} {mism} mismatches vs the K3 env")
+        if mism:
+            raise AssertionError(f"block path: {f} differ from K3's")
+    return launches
+
+
+PED_POS_TOL = 1e-4     # m: one SFM step, card vs CPU (exp/atan2 ulps)
+PED_VEL_TOL = 5e-3     # m/s: the first step from rest is ill-conditioned
+
+
+def small_reference(cfg_dict, device):
+    """A small test config on the card vs the same port on the CPU, from
     one layout and one noise draw per step.  Each step is observed from
     the CPU state on both devices (teacher forcing), so transcendental
-    rounding cannot accumulate.  Returns the worst mismatch fractions."""
+    rounding cannot accumulate.  With peds, the ped maps, ped vectors and
+    min distances must be equal and the crowd step within PED_*_TOL.
+    Returns the worst mismatch fractions and differences."""
     from img_env_tpu_torch import EnvConfig, MpcController, MppiConfig, NavEnv
     from img_env_tpu_torch.core.convert import (world_state_from_numpy,
                                                 world_state_to_numpy)
     from img_env_tpu_torch.mpc.controller import MpcState
 
-    cfg = EnvConfig.from_dict(SMALL)
+    cfg = EnvConfig.from_dict(cfg_dict)
+    peds = cfg.ped_sim.total > 0
     env_c, env_g = NavEnv(cfg, "cpu"), NavEnv(cfg, device)
     ctl_c = MpcController(env_c, MppiConfig(horizon=H, samples=K))
     ctl_g = MpcController(env_g, MppiConfig(horizon=H, samples=K))
@@ -194,9 +404,14 @@ def small_reference(device):
     if not torch.equal(st_c.obs_map, st_g.obs_map.cpu()):
         raise AssertionError("small config: obstacle maps differ")
     worst = {"sensor_maps": 0.0, "lasers": 0.0, "actions": 0.0}
+    if peds:
+        worst.update(ped_pos=0.0, ped_vel=0.0)
+    exact = ["is_collisions", "is_arrives"]
+    if peds:
+        exact += ["ped_maps", "ped_vector_states", "ped_min_dists"]
     ms = ctl_c.init_state()
     for step in range(4):
-        for f in ("is_collisions", "is_arrives"):
+        for f in exact:
             if not torch.equal(getattr(obs_c, f), getattr(obs_g, f).cpu()):
                 raise AssertionError(f"small config: {f} differ")
         for f in ("sensor_maps", "lasers"):
@@ -212,12 +427,31 @@ def small_reference(device):
                                float((a_c - a_g.cpu()).abs().max()))
         ms = ms_next
         adv_c, _, _ = env_c.advance_fn(st_c, a_c)
+        if peds:
+            adv_g, _, _ = env_g.advance_fn(to_g(st_c), a_c.to(device))
+            for f in ("pos", "vel"):
+                d = float((getattr(adv_c.peds, f)
+                           - getattr(adv_g.peds, f).cpu()).abs().max())
+                worst["ped_" + f] = max(worst["ped_" + f], d)
+            if not torch.equal(adv_c.peds.gait_state,
+                               adv_g.peds.gait_state.cpu()):
+                raise AssertionError("small config: gait phases differ")
         _, obs_g = env_g._observe(to_g(adv_c))
         st_c, obs_c, *_ = env_c.step(st_c, a_c)
     if worst["actions"] > 1e-3 or max(worst["sensor_maps"],
                                       worst["lasers"]) > 0.01:
         raise AssertionError(f"small config: card vs CPU {worst}")
+    if peds and (worst["ped_pos"] > PED_POS_TOL
+                 or worst["ped_vel"] > PED_VEL_TOL):
+        raise AssertionError(f"small crowd config: card vs CPU {worst}")
     return worst
+
+
+def card_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def main() -> None:
@@ -228,11 +462,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"# torch {torch.__version__} cuda {torch.version.cuda}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    log(card)
+    log(card_line())
 
     from img_env_tpu_torch import EnvConfig, MpcController, MppiConfig, NavEnv
     from img_env_tpu_torch.ops import kernels
@@ -241,81 +471,92 @@ def main() -> None:
     kernels.library()
     log(f"# kernels built in {time.perf_counter() - t0:.3f} s")
 
-    cfg = EnvConfig.from_dict(BENCH200)
-    t0 = time.perf_counter()
-    env = NavEnv(cfg, "cuda")
-    ctl = MpcController(env, MppiConfig(horizon=H, samples=K))
-    t_statics = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    state, obs = env.reset()
-    torch.cuda.synchronize()
-    log(f"# host statics + tables {t_statics:.3f} s, reset "
-        f"{time.perf_counter() - t0:.3f} s (P'={env.statics.polar.n_slots}, "
-        f"gated {env.statics.polar.n_fill_slots}, "
-        f"K3 rows {env.tables.painter.rows[0].shape[0]})")
+    def make(cfg_dict):
+        t0 = time.perf_counter()
+        env = NavEnv(EnvConfig.from_dict(cfg_dict), "cuda")
+        ctl = MpcController(env, MppiConfig(horizon=H, samples=K))
+        t_statics = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, _ = env.reset()
+        torch.cuda.synchronize()
+        log(f"# {cfg_dict['env_name']}: host statics + tables "
+            f"{t_statics:.3f} s, reset {time.perf_counter() - t0:.3f} s "
+            f"(P'={env.statics.polar.n_slots}, gated "
+            f"{env.statics.polar.n_fill_slots}, "
+            f"K3 rows {env.tables.painter.rows[0].shape[0]})")
+        return env, ctl, state
 
+    env, ctl, state = make(BENCH200)
+    env_p, ctl_p, state_p = make(BENCH200PED)
     checks = selfcheck(env, state)
+    checks["pedmap"] = selfcheck_pedmap(env_p, state_p)
 
-    # ---- the main path: reset + WARMUP + ITERS control steps ----
-    kernels.reset_launch_counts()
-    state, obs = env.reset()
-    mpc_state = ctl.init_state()
-    checksum = torch.zeros((), dtype=torch.float64, device="cuda")
-
-    def control_step(state, mpc_state):
-        before = dict(kernels.LAUNCHES)
-        actions, mpc_state, costs = ctl.act(state, mpc_state)
-        state, obs, reward, done, info = env.step(state, actions)
-        chk = (obs.sensor_maps.sum() + obs.lasers.sum()
-               + obs.vector_states.sum())
-        idle = [k for k, c in before.items() if kernels.LAUNCHES[k] == c]
-        if idle:
-            raise AssertionError(f"a control step launched no {idle} kernel")
-        return state, mpc_state, obs, costs, chk
-
-    for i in range(WARMUP):
-        # the last warm-up step runs with host syncs made errors: act and
-        # step must stay capturable in a CUDA graph
-        torch.cuda.set_sync_debug_mode("error" if i == WARMUP - 1 else 0)
-        state, mpc_state, obs, costs, chk = control_step(state, mpc_state)
-        checksum += chk
-    torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(ITERS):
-        state, mpc_state, obs, costs, chk = control_step(state, mpc_state)
-        checksum += chk
-    torch.cuda.synchronize()
-    ms_step = (time.perf_counter() - t0) / ITERS * 1e3
-    launches = dict(kernels.LAUNCHES)
-    n = cfg.robot.total
-    expect = {"sensor_maps": (n, 48, 48), "lasers": (n, 960),
-              "vector_states": (n, 3), "angular_maps": (n, 72)}
-    for f, shape in expect.items():
-        x = getattr(obs, f)
-        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"control step: bad {f} {tuple(x.shape)}")
-    if not bool(torch.isfinite(checksum)) or not bool(
-            torch.isfinite(costs).all()):
-        raise AssertionError("control step: non-finite checksum or costs")
-    log(f"# control step: {ms_step:.3f} ms/step over {ITERS} steps "
-        f"(+{WARMUP} warm-up), checksum {float(checksum):.6f}, "
+    # ---- the bench200 path ----
+    _, state, ms_step, launches, chk, obs = run_path(
+        env, ctl, WARMUP, BENCH_ITERS, ("raster", "fill", "paint"),
+        never=("paint_block", "pedmap"))
+    n = env.cfg.robot.total
+    check_shapes(obs, {"sensor_maps": (n, 48, 48), "lasers": (n, 960),
+                       "vector_states": (n, 3), "angular_maps": (n, 72)})
+    log(f"# bench200 control step: {ms_step:.3f} ms/step over {BENCH_ITERS} "
+        f"steps (+{WARMUP} warm-up), checksum {chk:.6f}, "
         f"arrived {int(state.robots.arrive.sum())}/{n}, "
         f"collided {int((state.robots.collision > 0).sum())}/{n}, "
         f"launches {launches}")
 
-    worst = small_reference("cuda")
-    log(f"# small config card vs CPU: worst mismatch fraction {worst}")
+    # ---- the crowd path (bench200ped) ----
+    torch.cuda.reset_peak_memory_stats()
+    state0, state_p, ms_p, launches_p, chk_p, obs_p = run_path(
+        env_p, ctl_p, WARMUP, ITERS, ("raster", "fill", "paint", "pedmap"),
+        never=("paint_block",), crowd=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = env_p.cfg.ped_sim.total
+    check_shapes(obs_p, {"sensor_maps": (n, 48, 48), "lasers": (n, 960),
+                         "ped_vector_states": (n, 71),
+                         "ped_maps": (n, 3, 48, 48)})
+    if obs_p.ped_min_dists.shape != (n,):
+        raise AssertionError("crowd path: bad ped_min_dists")
+    moved = float((state_p.peds.pos - state0.peds.pos).norm(dim=-1).mean())
+    codes = torch.bincount(state_p.robots.collision.long(), minlength=4)
+    steps_p = WARMUP + ITERS
+    log(f"# crowd control step: {ms_p:.3f} ms/step over {ITERS} steps "
+        f"(+{WARMUP} warm-up), checksum {chk_p:.6f}, peds moved "
+        f"{moved:.3f} m on average, ped-map occupancy "
+        f"{int(obs_p.ped_maps[:, 0].sum())} px, arrived "
+        f"{int(state_p.robots.arrive.sum())}/{n}, collision codes "
+        f"0/1/2/3 {codes.tolist()}, launches {launches_p} "
+        f"({steps_p} steps + reset), peak memory {peak:.3f} GiB, "
+        f"{m} peds")
+    if moved <= 0.0:
+        raise AssertionError("crowd path: the peds did not move")
+
+    # ---- the block-painter path ----
+    launches_b = block_path(BENCH200, env)
+    log(f"# block-painter path: launches {launches_b} "
+        f"(reset + {BLOCK_STEPS} steps)")
+
+    for name, cfg_dict in (("small", SMALL), ("small crowd", SMALL_PED)):
+        worst = small_reference(cfg_dict, "cuda")
+        log(f"# {name} config card vs CPU: worst {worst}")
 
     src = "img_env_tpu_torch/csrc/"
-    meta = {"raster": ("raster.cu", "img_env_tpu/ops/pallas_raster.py:105"),
-            "fill": ("fill.cu", "img_env_tpu/ops/pallas_fill.py:228"),
-            "paint": ("paint.cu", "img_env_tpu/ops/pallas_paint_t.py:215")}
-    rows = [{"name": name, "route": "cuda", "source": src + meta[name][0],
-             "replaces": meta[name][1], "launches": launches[name],
+    meta = {"raster": ("raster.cu", "img_env_tpu/ops/pallas_raster.py:105",
+                       launches),
+            "fill": ("fill.cu", "img_env_tpu/ops/pallas_fill.py:228",
+                     launches),
+            "paint": ("paint.cu", "img_env_tpu/ops/pallas_paint_t.py:215",
+                      launches),
+            "pedmap": ("pedmap.cu", "img_env_tpu/ops/pallas_pedmap.py:116",
+                       launches_p),
+            "paint_block": ("paint_block.cu",
+                            "img_env_tpu/ops/pallas_paint.py:152",
+                            launches_b)}
+    rows = [{"name": name, "route": "cuda", "source": src + cu,
+             "replaces": replaces, "launches": runs[name],
              "max_abs_err": checks[name][0], "ms": checks[name][1],
-             "plain_ms": checks[name][2]} for name in ("raster", "fill",
-                                                      "paint")]
+             "plain_ms": checks[name][2]}
+            for name, (cu, replaces, runs) in meta.items()]
+    log(card_line())
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

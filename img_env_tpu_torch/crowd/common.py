@@ -1,7 +1,9 @@
-"""Beep sampling (torch port of ``img_env_tpu.crowd.common.sample_beeps``).
+"""Crowd-model-independent pedestrian bookkeeping (torch port of
+``img_env_tpu.crowd.common``): trajectory waypoint cycling and beep
+sampling (img_env.cpp:304-359).
 
-It runs every step, crowd or not (nav_env.py's ``_crowd_step``): the beep
-flags land in ``RobotState.beep``.
+Beeps are drawn every step, crowd or not (nav_env.py's ``_crowd_step``):
+the beep flags land in ``RobotState.beep``.
 """
 
 from __future__ import annotations
@@ -9,6 +11,34 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from img_env_tpu_torch.constants import PED_WAYPOINT_DIST_SQ
+
+
+def _take(traj, idx):
+    """traj [M, W, 2] at per-ped slot idx [M] -> [M, 2]."""
+    return torch.gather(traj, 1, idx[:, None, None].expand(-1, 1, 2))[:, 0]
+
+
+def advance_traj_goals(pos, traj, traj_len, traj_idx
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next goals with the reference's index quirk.
+
+    The C++ checks arrival against ``trajectory_[cur_traj_index_]`` without
+    the modulo of ``_get_cur_goal`` (img_env.cpp:314-317,
+    agent.cpp:839-843): once the raw index reaches len(traj) it never
+    advances again and the goal stays ``traj[idx % len]``.
+
+    Returns (next_goals [M,2], new_traj_idx [M]).
+    """
+    len_safe = traj_len.clamp(min=1)
+    in_range = traj_idx < traj_len
+    check = _take(traj, torch.minimum(traj_idx, traj_len - 1).clamp(min=0))
+    d_sq = ((check - pos) ** 2).sum(-1)
+    arrived = in_range & (d_sq < PED_WAYPOINT_DIST_SQ)
+    new_idx = torch.where(arrived, traj_idx + 1, traj_idx)
+    goals = _take(traj, torch.remainder(new_idx, len_safe))
+    return goals, new_idx
 
 
 def sample_beeps(robot_pose, v_y, beep_r: float, ped_ca_p: float,

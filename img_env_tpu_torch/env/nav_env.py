@@ -7,16 +7,18 @@
 
 One ``NavEnv`` owns the host-built statics (map, footprints, sampler spec,
 sensor geometry) and their tensors on ``device``.  Step pipeline (ordering
-matches ImgEnv::_step, img_env.cpp:421-525): beeps -> robot kinematics ->
-raster (kernel K1) and collision codes -> flat sensor pass: FOV fill (K2),
-raycast, exact painter (K3), self stamp, 48x48 resize -> observation ->
-reward/done.  On a CUDA device the three kernels always run; on the CPU
-their plain-torch twins do.
+matches ImgEnv::_step, img_env.cpp:421-525): beeps -> crowd (SFM + gait)
+-> robot kinematics -> raster (kernel K1: robots; peds' legs and bodies)
+and collision codes -> flat sensor pass: FOV fill (K2), raycast, exact
+painter (K3, or K5 with ``paint_mode='block'``), self stamp, 48x48 resize
+-> ped vectors and ped maps (K4) -> observation -> reward/done.  On a CUDA
+device the kernels always run; on the CPU their plain-torch twins do.
 
-Ported: one scene, robots and obstacles without pedestrians, one sensor
-placement shared by all robots, ``use_laser`` and ``sensor_mode='parity'``.
-Everything else raises ``NotImplementedError``.  ``step_fn`` and the
-observation make no host syncs.
+Ported: one scene, robots and obstacles, pedestrians with the ``pedscene``
+(SFM) crowd model or none, one sensor placement shared by all robots,
+``use_laser`` and ``sensor_mode='parity'``.  Everything else raises
+``NotImplementedError``.  ``step_fn`` and the observation make no host
+syncs.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from img_env_tpu_torch.core.state import (
     WorldState,
 )
 from img_env_tpu_torch.crowd import common as crowd_common
+from img_env_tpu_torch.crowd import gait as gait_mod
+from img_env_tpu_torch.crowd import sfm as sfm_mod
 from img_env_tpu_torch.dynamics.kinematics import batched_robot_cmd
 from img_env_tpu_torch.dynamics.limiter import LimiterParams
 from img_env_tpu_torch.env import maps as maps_mod
@@ -49,6 +53,7 @@ from img_env_tpu_torch.env.sampler import (
     sample_scenario_retry,
 )
 from img_env_tpu_torch.mpc.edt import edt2d_device
+from img_env_tpu_torch.ops import f32
 from img_env_tpu_torch.ops import painter as painter_mod
 from img_env_tpu_torch.ops import polar as polar_mod
 from img_env_tpu_torch.ops import raster
@@ -67,13 +72,27 @@ def _pad_clouds(clouds):
 
 
 class EnvStatics(NamedTuple):
-    """Host-precomputed constants (numpy), robots and obstacles only."""
+    """Host-precomputed constants (numpy)."""
 
     static_map: np.ndarray
     resolution: float
     robot_points: np.ndarray       # [N,P,2]
     robot_mask: np.ndarray         # [N,P]
     robot_radius: np.ndarray       # [N] last size element
+    ped_body_points: np.ndarray    # [M,Q,2] circle-ped bodies
+    ped_body_mask: np.ndarray
+    ped_left_points: np.ndarray    # [M,L,2] leg clouds at leg-frame origin
+    ped_left_mask: np.ndarray
+    ped_right_points: np.ndarray
+    ped_right_mask: np.ndarray
+    ped_rest_left: np.ndarray      # [M,2] configured leg offsets
+    ped_rest_right: np.ndarray
+    ped_is_leg: np.ndarray         # [M]
+    ped_r: np.ndarray              # [M] body radius, rounded 2dp
+    ped_max_speed: np.ndarray      # [M]
+    ped_wp_xy: np.ndarray          # [M,W,2] scripted waypoints (pad 0)
+    ped_wp_r: np.ndarray           # [M,W] pedsim waypoint radii
+    ped_wp_count: np.ndarray       # [M] scripted count (0 -> goal/go_back)
     obs_points: np.ndarray         # [O,P,2]
     obs_point_dist: np.ndarray     # [O,P]
     obs_base_mask: np.ndarray      # [O,P]
@@ -90,11 +109,15 @@ class EnvStatics(NamedTuple):
     paint_t: painter_mod.PaintTStatics
 
 
+UNPORTED_SCENES = ("rvoscene", "ervoscene", "dataset")
+
+
 def check_supported(cfg: EnvConfig) -> None:
     """Raise NotImplementedError for what this port does not run yet."""
-    if cfg.ped_sim.total > 0:
-        raise NotImplementedError("pedestrians and crowd models are not "
-                                  "ported (ped_sim.total must be 0)")
+    if cfg.ped_sim.total > 0 and cfg.ped_sim.type in UNPORTED_SCENES:
+        raise NotImplementedError(
+            f"crowd model {cfg.ped_sim.type!r} is not ported (pedscene "
+            "only)")
     if cfg.sensor_mode != "parity":
         raise NotImplementedError(
             f"sensor_mode {cfg.sensor_mode!r} is not ported (only 'parity')")
@@ -108,9 +131,61 @@ def check_supported(cfg: EnvConfig) -> None:
     if len({tuple(float(v) for v in s) for s in cfg.robot.sensor_cfgs[:n]}) > 1:
         raise NotImplementedError(
             "heterogeneous sensor placements are not ported")
-    if cfg.paint_mode == "block":
-        raise NotImplementedError(
-            "paint_mode='block' (the gen-1 painter layout) is not ported")
+
+
+def _ped_statics(cfg: EnvConfig):
+    """Ped clouds, leg rest offsets, radii, speeds and scripted waypoints
+    (the ped part of the JAX package's ``build_statics``)."""
+    m = cfg.ped_sim.total
+    body, left, right = [], [], []
+    rest_l = np.zeros((m, 2), np.float32)
+    rest_r = np.zeros((m, 2), np.float32)
+    is_leg = np.zeros(m, bool)
+    ped_r = np.zeros(m, np.float32)
+    ped_ms = np.zeros(m, np.float32)
+    empty = np.zeros((0, 2), np.float32)
+    for j in range(m):
+        sz = list(cfg.ped_sim.size[j])
+        ped_ms[j] = cfg.ped_sim.max_speed[j]
+        if cfg.ped_sim.shape[j] == "leg":
+            # init_ped duplicates the left leg spec mirrored in y
+            # (reset_helper.py:400-404): sizes -> [x, y, r, x, -y, r]
+            full = sz + [sz[0], -sz[1], sz[2]]
+            left.append(circle_points(0.0, 0.0, full[2]))
+            right.append(circle_points(0.0, 0.0, full[5]))
+            body.append(empty)
+            rest_l[j] = full[0:2]
+            rest_r[j] = full[3:5]
+            is_leg[j] = True
+            ped_r[j] = round(full[2], 2)
+        else:
+            body.append(circle_points(sz[0], sz[1], sz[2]))
+            left.append(empty)
+            right.append(empty)
+            ped_r[j] = round(sz[2], 2)
+    # scripted waypoint lists (Agent.trajectory, img_env.cpp:220-250)
+    wp_lists = [list(cfg.ped_sim.waypoints[j]) if cfg.ped_sim.waypoints
+                else [] for j in range(m)]
+    wmax = max([2] + [len(w) for w in wp_lists])
+    wp_xy = np.zeros((m, wmax, 2), np.float64)
+    wp_r = np.zeros((m, wmax), np.float64)
+    wp_cnt = np.zeros(m, np.int64)
+    for j in range(m):
+        for k, wpt in enumerate(wp_lists[j]):
+            wp_xy[j, k] = wpt[0], wpt[1]
+            wp_r[j, k] = wpt[2] if len(wpt) > 2 else 0.0
+        wp_cnt[j] = len(wp_lists[j])
+    clouds = [_pad_clouds(c if m else [empty]) for c in (body, left, right)]
+    if m == 0:
+        clouds = [(p[:0], k[:0]) for p, k in clouds]
+    (pb, pbm), (pl, plm), (pr, prm) = clouds
+    return dict(
+        ped_body_points=pb, ped_body_mask=pbm,
+        ped_left_points=pl, ped_left_mask=plm,
+        ped_right_points=pr, ped_right_mask=prm,
+        ped_rest_left=rest_l, ped_rest_right=rest_r,
+        ped_is_leg=is_leg, ped_r=ped_r, ped_max_speed=ped_ms,
+        ped_wp_xy=wp_xy, ped_wp_r=wp_r, ped_wp_count=wp_cnt)
 
 
 def build_statics(cfg: EnvConfig) -> EnvStatics:
@@ -170,7 +245,7 @@ def build_statics(cfg: EnvConfig) -> EnvStatics:
     return EnvStatics(
         static_map=static_map, resolution=res,
         robot_points=robot_points, robot_mask=robot_mask,
-        robot_radius=rob_radius,
+        robot_radius=rob_radius, **_ped_statics(cfg),
         obs_points=op, obs_point_dist=od, obs_base_mask=om,
         obs_is_circle=obs_circ,
         view_params=vp, view_statics=vs, polar=ps,
@@ -192,6 +267,47 @@ class SensorTables(NamedTuple):
     beam_dirs: torch.Tensor        # [R,2] f32 (cos, sin) of beam angles
 
 
+class CrowdTables(NamedTuple):
+    """The ped statics the crowd step and the observation read, on the
+    environment's device (fields as in ``EnvStatics``)."""
+
+    body_points: torch.Tensor      # [M,Q,2] f32
+    body_mask: torch.Tensor        # [M,Q] bool
+    left_points: torch.Tensor      # [M,L,2] f32
+    left_mask: torch.Tensor
+    right_points: torch.Tensor
+    right_mask: torch.Tensor
+    rest_left: torch.Tensor        # [M,2] f32
+    rest_right: torch.Tensor
+    ped_r: torch.Tensor            # [M] f32
+    max_speed: torch.Tensor        # [M] f32
+    robot_radius: torch.Tensor     # [N] f32
+    wp_r: torch.Tensor             # [M,1+W] f32 pedsim queue radii: goal
+                                   # (r = 1), then the scripted waypoints
+    sfm_vmax: torch.Tensor         # [M+N] f32: peds, then robot mirrors
+    sfm_valid: torch.Tensor        # [M+N] bool
+
+
+def make_crowd_tables(st: EnvStatics, cfg: EnvConfig, device) -> CrowdTables:
+    m, n = cfg.ped_sim.total, cfg.robot.total
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    b = lambda a: torch.as_tensor(np.asarray(a, bool), device=device)
+    scripted = (st.ped_wp_count > 0)[:, None]
+    traj_r = np.where(scripted, st.ped_wp_r, 0.0)
+    rel = int(cfg.relation_ped_robo) == 1
+    return CrowdTables(
+        body_points=f32(st.ped_body_points), body_mask=b(st.ped_body_mask),
+        left_points=f32(st.ped_left_points), left_mask=b(st.ped_left_mask),
+        right_points=f32(st.ped_right_points),
+        right_mask=b(st.ped_right_mask),
+        rest_left=f32(st.ped_rest_left), rest_right=f32(st.ped_rest_right),
+        ped_r=f32(st.ped_r), max_speed=f32(st.ped_max_speed),
+        robot_radius=f32(st.robot_radius),
+        wp_r=f32(np.concatenate([np.ones((m, 1)), traj_r], axis=1)),
+        sfm_vmax=f32(np.concatenate([st.ped_max_speed, np.full(n, 1.2)])),
+        sfm_valid=b(np.concatenate([np.ones(m, bool), np.full(n, rel)])))
+
+
 class NavEnv:
     """Single-scene environment on ``device`` ('cpu' or 'cuda')."""
 
@@ -210,8 +326,13 @@ class NavEnv:
         dev = self.device
         own_mask = polar_mod.own_mask_sorted(st.polar, st.own_slots,
                                              st.own_slots_ok)
-        rows = painter_mod.PaintRows.build(st.paint_t,
-                                           st.view_params.range_total)
+        n_beams = st.view_params.range_total
+        # the painter's launch table: K5's 64-slot blocks for
+        # paint_mode='block', K3's slot rows otherwise
+        if cfg.paint_mode == "block":
+            rows = painter_mod.PaintBlocks.build(st.painter, n_beams)
+        else:
+            rows = painter_mod.PaintRows.build(st.paint_t, n_beams)
         ang = torch.as_tensor(st.view_statics.laser.angles,
                               dtype=torch.float32, device=dev)
         self.tables = SensorTables(
@@ -220,6 +341,9 @@ class NavEnv:
             robot_points=torch.as_tensor(st.robot_points, device=dev),
             robot_mask=torch.as_tensor(st.robot_mask, device=dev),
             beam_dirs=torch.stack([torch.cos(ang), torch.sin(ang)], -1))
+        self.crowd = make_crowd_tables(st, cfg, dev)
+        self.scene_type = (cfg.ped_sim.type if cfg.ped_sim.total > 0
+                           else "none")
         self.static_map = torch.as_tensor(st.static_map, device=dev)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
@@ -232,14 +356,18 @@ class NavEnv:
         return sample_scenario_retry(self.statics.sampler, self.generator,
                                      self.device)
 
-    def reset_fn(self, sample: Optional[ScenarioSample] = None):
-        state = self.reset_state_fn(sample)
+    def reset_fn(self, sample: Optional[ScenarioSample] = None, carry=None,
+                 dataset=None):
+        state = self.reset_state_fn(sample, carry, dataset)
         return self._observe(state)
 
-    def reset_state_fn(self, sample: Optional[ScenarioSample] = None
-                       ) -> WorldState:
-        """Map, EDT and robot state for an episode, without the sensor
+    def reset_state_fn(self, sample: Optional[ScenarioSample] = None,
+                       carry=None, dataset=None) -> WorldState:
+        """Map, EDT, robot and ped state for an episode, without the sensor
         pass.  ``sample``: an injected layout (default: a fresh draw)."""
+        if carry is not None or dataset is not None:
+            raise NotImplementedError(
+                "reset with carry= or dataset= is not ported")
         if sample is None:
             sample = self.sample_scenario()
         return self.reset_from_sample(sample)
@@ -272,13 +400,7 @@ class NavEnv:
             pose=init[:n], goal=target[:n, :2], goal_yaw=init[:n, 2],
             vw_last0=z(n, 2), vw_last1=z(n, 2), vel_world=z(n, 2),
             collision=zi(n), arrive=zb(n), beep=zi(n))
-        peds = PedState(
-            pos=z(0, 2), yaw=z(0), prev_pos=z(0, 2), vel=z(0, 2),
-            goal=z(0, 2), traj=z(0, 2, 2), traj_len=zi(0), traj_idx=zi(0),
-            gait_state=zi(0), gait_residual=z(0), leg_offset=z(0, 2, 2),
-            sfm_wp_idx=zi(0), sfm_has_dest=zb(0), sfm_lastdest=zi(0),
-            dataset_traj=z(0, 1, 2), dataset_vel=z(0, 1, 2),
-            dataset_len=zi(0))
+        peds = self._reset_peds(init[n:], target[n:], sc.go_back)
         obstacles = ObstacleState(
             pose=obs_pose, size=z(obs_pose.shape[0], 4),
             is_circle=is_circ, aabb=aabb)
@@ -295,6 +417,42 @@ class NavEnv:
             step=torch.zeros((), dtype=torch.int32, device=dev),
             prev_goal_dist=z(n),
             has_prev_dist=torch.zeros((), dtype=torch.bool, device=dev))
+
+    def _reset_peds(self, init, target, go_back) -> PedState:
+        """Ped state at reset (nav_env.py of the JAX package): the goal,
+        then the start again when going back, or the scripted waypoints
+        (Agent.trajectory, img_env.cpp:243-250; reset_helper.py:337-342);
+        legs at their rest offsets; the SFM queue at its first waypoint."""
+        st = self.statics
+        ct = self.crowd
+        dev = self.device
+        m = init.shape[0]
+        wmax = int(st.ped_wp_xy.shape[1])
+        goal = target[:, :2]
+        traj = torch.stack(
+            [goal, torch.where(go_back[:, None], init[:, :2], goal)], 1)
+        traj = torch.cat([traj, traj.new_zeros((m, wmax - 2, 2))], 1)
+        scripted = torch.as_tensor(st.ped_wp_count > 0, device=dev)
+        traj = torch.where(scripted[:, None, None],
+                           torch.as_tensor(st.ped_wp_xy, dtype=torch.float32,
+                                           device=dev), traj)
+        back = go_back.to(torch.int32) + 1
+        traj_len = torch.where(
+            scripted, torch.as_tensor(st.ped_wp_count, dtype=torch.int32,
+                                      device=dev), back)
+        zi = torch.zeros((m,), dtype=torch.int32, device=dev)
+        z2 = init.new_zeros((m, 2))
+        return PedState(
+            pos=init[:, :2], yaw=init[:, 2], prev_pos=init[:, :2], vel=z2,
+            goal=goal, traj=traj, traj_len=traj_len, traj_idx=zi,
+            gait_state=zi, gait_residual=init.new_zeros((m,)),
+            leg_offset=torch.stack([ct.rest_left, ct.rest_right], 1),
+            sfm_wp_idx=zi,
+            sfm_has_dest=torch.ones((m,), dtype=torch.bool, device=dev),
+            sfm_lastdest=torch.full((m,), -1, dtype=torch.int32, device=dev),
+            dataset_traj=init.new_zeros((m, 1, 2)),
+            dataset_vel=init.new_zeros((m, 1, 2)),
+            dataset_len=torch.ones((m,), dtype=torch.int32, device=dev))
 
     # ------------------------------------------------------------------
     # step
@@ -327,10 +485,11 @@ class NavEnv:
         w = torch.where(alive, actions[:, 1], zero)
         v_y = torch.where(alive, actions[:, 2], zero)
 
-        # no crowd on this path: the beep draw still runs every step
+        # crowd step first, from the previous robot mirrors
         _, _, beeps = crowd_common.sample_beeps(
             r.pose, v_y, float(cfg.beep_r), float(cfg.ped_ca_p), u=beep_u,
             generator=self.generator)
+        peds, crowd_aux = self._crowd_step(state)
         pose, l0, l1, vel, arrive_new = batched_robot_cmd(
             r.pose, r.goal, r.vw_last0, r.vw_last1, r.vel_world,
             v, w, v_y, alive, st.limiter_v, st.limiter_w,
@@ -339,7 +498,66 @@ class NavEnv:
             pose=pose, goal=r.goal, goal_yaw=r.goal_yaw,
             vw_last0=l0, vw_last1=l1, vel_world=vel,
             collision=r.collision, arrive=r.arrive | arrive_new, beep=beeps)
-        return state._replace(robots=robots, step=state.step + 1), alive, beeps
+        return (state._replace(robots=robots, peds=peds, crowd_aux=crowd_aux,
+                               step=state.step + 1), alive, beeps)
+
+    def _crowd_step(self, state: WorldState):
+        """Peds and the robot mirrors' crowd velocities after one crowd
+        step (the JAX package's ``_crowd_step``, pedscene branch + gait).
+        The beep sources feed only the ERVO model, which is not ported."""
+        cfg = self.cfg
+        ct = self.crowd
+        m = cfg.ped_sim.total
+        peds, aux = state.peds, state.crowd_aux
+        if m == 0 or self.scene_type in ("none", ""):
+            return peds, aux
+        _, new_idx = crowd_common.advance_traj_goals(
+            peds.pos, peds.traj, peds.traj_len, peds.traj_idx)
+        if self.scene_type == "pedscene":
+            # peds + robot mirrors as one SFM population; the pedsim
+            # queue is [goal (r=1)] + trajectory (pedscene.h:39-47) and
+            # its fetch head travels in the sfm_lastdest slot
+            n = cfg.robot.total
+            rob = state.robots
+            zi = torch.zeros((n,), dtype=torch.int32, device=self.device)
+            wq = 1 + peds.traj.shape[1]
+            wp = sfm_mod.SfmWaypointState(
+                wp_xy=torch.cat([
+                    torch.cat([peds.goal[:, None], peds.traj], 1),
+                    peds.traj.new_zeros((n, wq, 2))]),
+                wp_r=torch.cat([ct.wp_r, ct.wp_r.new_zeros((n, wq))]),
+                wp_len=torch.cat([1 + peds.traj_len, zi]),
+                dest_idx=torch.cat([peds.sfm_wp_idx, zi]),
+                head=torch.cat([peds.sfm_lastdest, zi]),
+                has_dest=torch.cat([peds.sfm_has_dest,
+                                    torch.zeros_like(zi, dtype=torch.bool)]))
+            aabb = state.obstacles.aabb
+            seg_valid = torch.full((aabb.shape[0],),
+                                   not cfg.ped_sim.ignore_obstacle,
+                                   dtype=torch.bool, device=self.device)
+            all_pos, all_vel, new_wp = sfm_mod.sfm_step(
+                torch.cat([peds.pos, rob.pose[:, :2]]),
+                torch.cat([peds.vel, aux.robot_vel]),
+                ct.sfm_vmax, ct.sfm_valid, wp, aabb[:, :2], aabb[:, 2:],
+                seg_valid, float(cfg.control_hz))
+            new_pos, new_vel = all_pos[:m], all_vel[:m]
+            aux = CrowdAuxState(robot_vel=all_vel[m:])
+            peds = peds._replace(sfm_wp_idx=new_wp.dest_idx[:m],
+                                 sfm_has_dest=new_wp.has_dest[:m],
+                                 sfm_lastdest=new_wp.head[:m])
+        else:
+            # any other scene type keeps its peds in place (as the JAX
+            # package does); the unported models were refused at build
+            new_pos, new_vel = peds.pos, peds.vel
+        yaw = torch.atan2(new_vel[:, 1], new_vel[:, 0])
+        move = f32.sqrt(((new_pos - peds.pos) ** 2).sum(-1))
+        gstate, gres, legs = gait_mod.update_gait(
+            peds.gait_state, peds.gait_residual, move, ct.rest_left,
+            ct.rest_right)
+        return peds._replace(
+            pos=new_pos, yaw=yaw, prev_pos=peds.pos, vel=new_vel,
+            traj_idx=new_idx, gait_state=gstate, gait_residual=gres,
+            leg_offset=legs), aux
 
     # ------------------------------------------------------------------
     def _sensor_pass(self, packed, poses):
@@ -365,12 +583,15 @@ class NavEnv:
         n = cfg.robot.total
         dev = self.device
         r = state.robots
-        e3 = torch.zeros((0, 3), device=dev)
-        e12 = torch.zeros((0, 1, 2), device=dev)
-        e1b = torch.zeros((0, 1), dtype=torch.bool, device=dev)
+        p = state.peds
+        ct = self.crowd
+        # each leg cloud shifted by its gait offset, then posed by the ped
         layers = raster.build_layers(
             state.obs_map, st.resolution, r.pose, t.robot_points,
-            t.robot_mask, e3, e12, e1b, e12, e1b, e12, e1b)
+            t.robot_mask, torch.cat([p.pos, p.yaw[:, None]], -1),
+            ct.body_points, ct.body_mask,
+            ct.left_points + p.leg_offset[:, 0:1, :], ct.left_mask,
+            ct.right_points + p.leg_offset[:, 1:2, :], ct.right_mask)
         collision = raster.collision_codes(layers, r.collision, r.arrive)
         sensor_maps, hits, angular = self._sensor_pass(layers.packed, r.pose)
 
@@ -385,19 +606,27 @@ class NavEnv:
         # hit points: raw hit distances along the beam directions
         # (agent.cpp:434-436)
         hit_points = hits[..., None] * t.beam_dirs[None]
+        if cfg.ped_sim.total:
+            ped_vec, ped_map, ped_min = observe.ped_vectors_and_map(
+                r.pose, p.pos, p.vel, ct.ped_r, ct.robot_radius,
+                int(cfg.max_ped), int(cfg.ped_vec_dim),
+                int(cfg.ped_image_size[0]), float(cfg.ped_image_r))
+        else:
+            ped_vec = torch.zeros((n, 1 + cfg.ped_vec_dim * cfg.max_ped),
+                                  device=dev)
+            ped_map = torch.zeros((n, 3, cfg.ped_image_size[0],
+                                   cfg.ped_image_size[1]), device=dev)
+            ped_min = torch.full((n,), float("inf"), device=dev)
         obs = Observation(
             vector_states=vec,
             sensor_maps=sensor_maps,
             is_collisions=collision,
             is_arrives=r.arrive.to(torch.int32),
             lasers=lasers,
-            ped_vector_states=torch.zeros(
-                (n, 1 + cfg.ped_vec_dim * cfg.max_ped), device=dev),
-            ped_maps=torch.zeros(
-                (n, 3, cfg.ped_image_size[0], cfg.ped_image_size[1]),
-                device=dev),
+            ped_vector_states=ped_vec,
+            ped_maps=ped_map,
             step_ds=step_ds,
-            ped_min_dists=torch.full((n,), float("inf"), device=dev),
+            ped_min_dists=ped_min,
             angular_maps=angular,
             hit_points=hit_points,
         )
@@ -408,8 +637,11 @@ class NavEnv:
         return new_state, obs
 
     # ------------------------------------------------------------------
-    def reset(self, sample: Optional[ScenarioSample] = None):
-        return self.reset_fn(sample)
+    def reset(self, sample: Optional[ScenarioSample] = None, carry=None,
+              dataset=None):
+        """The JAX reset's ``carry`` (state carried across episodes) and
+        ``dataset`` (a replayed crowd) are not ported and raise."""
+        return self.reset_fn(sample, carry, dataset)
 
     def step(self, state, actions):
         return self.step_fn(state, torch.as_tensor(actions,

@@ -1,11 +1,14 @@
-"""Observation pieces for the robots-only path (torch port of
-``img_env_tpu.env.observe``: vector states, normalised lasers, goal
-distances; img_env.cpp:547-587, yaml_env.py:446-481)."""
+"""Observation assembly (torch port of ``img_env_tpu.env.observe``:
+vector states, ped vectors and maps, normalised lasers, goal distances;
+img_env.cpp:547-587, yaml_env.py:392-481)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from img_env_tpu_torch.ops import f32, pedmap
 from img_env_tpu_torch.ops.raster import div_const
 
 
@@ -25,6 +28,69 @@ def vector_state(pose, goal_xy, goal_yaw, vw_last0, state_dim: int):
     if state_dim == 5:
         return torch.stack([bx, by, yaw, vw_last0[:, 0], vw_last0[:, 1]], -1)
     raise ValueError(f"state_dim {state_dim} not in (3, 4, 5)")
+
+
+def _rotate(c, s, x, y):
+    """(c x + s y, -s x + c y).  In float32 each row is one fused
+    multiply-add, contracted as XLA contracts the JAX package's
+    expressions: the product with c is the fused one in both."""
+    if x.dtype == torch.float32:
+        return f32.fma(c, x, s * y), f32.fma(c, y, -s * x)
+    return c * x + s * y, -s * x + c * y
+
+
+def peds_in_base(robot_pose, ped_pos, ped_vel):
+    """Ped positions / velocities in each robot's base frame
+    (img_env.cpp:568-583).  Returns (px, py, vx, vy) each [N, M].  In
+    float32 the robot yaw's sin/cos carry glibc's bits (ops/f32.py), so
+    the CPU, the card and the JAX package's CPU build agree bit for bit."""
+    yaw = robot_pose[:, 2]
+    if yaw.dtype == torch.float32:
+        s, c = f32.sin_cos(yaw)
+    else:
+        s, c = torch.sin(yaw), torch.cos(yaw)
+    c, s = c[:, None], s[:, None]
+    d = ped_pos[None, :, :] - robot_pose[:, None, :2]      # [N,M,2]
+    px, py = _rotate(c, s, d[..., 0], d[..., 1])
+    vx, vy = _rotate(c, s, ped_vel[None, :, 0], ped_vel[None, :, 1])
+    return px, py, vx, vy
+
+
+def ped_vectors_and_map(robot_pose, ped_pos, ped_vel, ped_r, robot_r,
+                        max_ped: int, ped_vec_dim: int, image_size: int,
+                        ped_image_r: float):
+    """Sorted 7-dim ped vectors [N, 1 + ped_vec_dim * max_ped], 3-channel
+    ped maps [N, 3, hs, hs] and nearest-ped clearances [N].
+
+    yaml_env.py:392-458: peds sorted by base-frame range^2 (stable, so
+    equal ranges keep their index order); each vector block is (px, py,
+    vx, vy, r, r + robot_r, dist); the map covers +-3 m at 6/image_size
+    (ops/pedmap.py, kernel K4 on the card); ped_min_dist is the nearest
+    ped's distance minus (ped_r + robot_r).
+    """
+    n, m = robot_pose.shape[0], ped_pos.shape[0]
+    px, py, vx, vy = peds_in_base(robot_pose, ped_pos, ped_vel)
+    k = min(m, max_ped)
+    head = torch.full((n, 1), float(m), dtype=px.dtype, device=px.device)
+    tail = px.new_zeros((n, ped_vec_dim * (max_ped - k)))
+    if k > 0:
+        order = torch.argsort(pedmap.range_sq(px, py), dim=1,
+                              stable=True)[:, :k]
+        tk = lambda x: torch.gather(x, 1, order)
+        pxs, pys = tk(px), tk(py)
+        rr = ped_r[order]
+        dist = f32.sqrt(pedmap.range_sq(pxs, pys))
+        block = torch.stack([pxs, pys, tk(vx), tk(vy), rr,
+                             rr + robot_r[:, None], dist], dim=-1)
+        vec = torch.cat([head, block.reshape(n, k * ped_vec_dim), tail], 1)
+        ped_min = dist[:, 0] - (rr[:, 0] + robot_r)
+    else:
+        vec = torch.cat([head, tail], 1)
+        ped_min = torch.full((n,), math.inf, dtype=px.dtype,
+                             device=px.device)
+    ped_map = pedmap.ped_map(px, py, vx, vy, 6.0 / image_size, ped_image_r,
+                             image_size)
+    return vec, ped_map, ped_min
 
 
 def norm_lasers(hits, laser_max: float, laser_norm: bool):

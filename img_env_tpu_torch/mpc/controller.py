@@ -3,7 +3,9 @@
 
 ``act_fn`` builds the per-episode ``WorldCost`` from the live state (the
 episode EDT that reset computed over the static map plus sampled
-obstacles) and runs one K-sample MPPI solve per robot.
+obstacles), predicts the pedestrians over the horizon once per solve
+(mpc/prediction.py, 'cv' or 'sfm') and runs one K-sample MPPI solve per
+robot against the peds and the ``avoid_k`` nearest other robots.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from img_env_tpu_torch.core.state import WorldState
 from img_env_tpu_torch.mpc.cost import CostWeights, WorldCost
 from img_env_tpu_torch.mpc.edt import edt2d
 from img_env_tpu_torch.mpc.mppi import MppiConfig, batched_mppi
-from img_env_tpu_torch.mpc.prediction import predict_cv
+from img_env_tpu_torch.mpc.prediction import HEADS, predict_peds
 
 OCCUPIED_THRESH = 250  # grid value < 250 is occupied (agent.cpp:394-401)
 
@@ -34,10 +36,11 @@ class MpcController:
         if method != "mppi":
             raise NotImplementedError(
                 f"MPC method {method!r} is not ported (only 'mppi')")
-        if ped_prediction != "cv":
+        if ped_prediction not in HEADS:
             raise NotImplementedError(
                 f"ped prediction head {ped_prediction!r} is not ported "
-                "(only 'cv')")
+                f"(only {HEADS})")
+        self.ped_prediction = ped_prediction
         self.env = env
         self.device = env.device
         ranges = env.cfg.continuous_actions
@@ -107,12 +110,13 @@ class MpcController:
             noise = self.draw_noise(pose.dtype)
         wc = self.world_cost(state)
         st = env.statics
-        # no pedestrians on this path (NavEnv refuses ped_sim.total > 0)
-        ped_pos, ped_vel, ped_r = (pose.new_zeros((0, 2)),
-                                   pose.new_zeros((0, 2)),
-                                   pose.new_zeros((0,)))
         dt = float(env.cfg.control_hz)
-        ped_traj = predict_cv(ped_pos, ped_vel, self.cfg.horizon, dt)
+        # one ped prediction per solve, shared by all rollouts
+        ped_traj = predict_peds(
+            self.ped_prediction, state.peds.pos.to(pose.dtype),
+            state.peds.vel.to(pose.dtype),
+            env.crowd.max_speed.to(pose.dtype), self.cfg.horizon, dt)
+        ped_r = env.crowd.ped_r.to(pose.dtype)
         # other robots join the avoidance set as constant-velocity tracks
         ts = (torch.arange(1, self.cfg.horizon + 1, dtype=torch.float32,
                            device=pose.device) * dt).to(pose.dtype)[:, None,

@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The kernels live in ``img_env_tpu_torch/csrc/*.cu`` with a plain C
-interface.  ``library()`` compiles them with nvcc for ``sm_90a`` into one
-shared library at first use — under ``img_env_tpu_torch/_build/<hash>/``,
-keyed by a hash of the sources and flags — and loads it with ctypes.
+interface.  ``library()`` compiles them with nvcc for ``sm_90a`` at first
+use — one nvcc process per source, all started together, then one link
+into a shared library under ``img_env_tpu_torch/_build/<hash>/``, keyed by
+a hash of the sources and flags — and loads it with ctypes.
 Nothing is built or loaded when the package is imported: CPU tensors never
 reach a kernel (each wrapper runs its plain-torch twin for them).
 
@@ -27,12 +28,12 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("raster.cu", "fill.cu", "paint.cu")
+SOURCES = ("raster.cu", "fill.cu", "paint.cu", "pedmap.cu", "paint_block.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # name -> (C symbol, argtypes); every symbol returns int (cudaError_t)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "raster": ("img_env_raster_robots", (_P, _P, _I, _I, _I, _I, _P, _P)),
     "fill": ("img_env_fill_sorted",
@@ -40,6 +41,10 @@ _SIGNATURES = {
               _P, _P, _P, _P)),
     "paint": ("img_env_paint_rows",
               (_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P)),
+    "pedmap": ("img_env_ped_map",
+               (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P)),
+    "paint_block": ("img_env_paint_blocks",
+                    (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P)),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
@@ -68,6 +73,21 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with nvcc's output if any
+    fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, compiled on first use."""
     global _lib
@@ -78,15 +98,17 @@ def library() -> ctypes.CDLL:
         so = os.path.join(out_dir, "libimg_env_kernels.so")
         if not os.path.exists(so):
             os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *(os.path.join(CSRC, s) for s in SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    "nvcc failed:\n" + " ".join(cmd) + "\n" + proc.stdout
-                    + proc.stderr)
+            tag = f"{os.getpid()}.tmp"
+            objs = [os.path.join(out_dir, f"{src}.{tag}.o")
+                    for src in SOURCES]
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj,
+                       os.path.join(CSRC, src)]
+                      for src, obj in zip(SOURCES, objs)])
+            tmp = f"{so}.{tag}"
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
             os.replace(tmp, so)
+            for obj in objs:
+                os.remove(obj)
         lib = ctypes.CDLL(so)
         for sym, argtypes in _SIGNATURES.values():
             fn = getattr(lib, sym)

@@ -20,7 +20,10 @@ JAX package's builders (painter.py, pallas_paint_t.py), held array-equal by
 the tests; their block and group layout was chosen for the TPU and is kept
 as is.  ``PaintRows`` flattens the PaintT groups and wide rows into the
 slot rows kernel K3 walks (one launch, CSR windows, slot-order output).
-``paint_sorted`` — the dense decode over regions — is K3's plain-torch twin.
+``PaintBlocks`` flattens the gen-1 layout (``paint_mode='block'``) into the
+64-slot blocks kernel K5 (csrc/paint_block.cu) walks the same way.
+``paint_sorted`` — the dense decode over regions — is the plain-torch twin
+of both.
 """
 
 from __future__ import annotations
@@ -401,6 +404,53 @@ class PaintRows(NamedTuple):
                          table=np.ascontiguousarray(table))
 
 
+class PaintBlocks(NamedTuple):
+    """K5's blocks: the gen-1 layout's 64-slot blocks, each with one beam
+    window [rb, rb + w) (beams past R - 1 clip to it, and visit nothing)
+    and a [w, BM] int16 table of visit step+1 (0 = not visited).  The
+    regions' blocks (their wide slots masked out, constant-200 regions as
+    w = 0), then packs of BM wide slots over all beams: every slot of the
+    painted space is in exactly one block."""
+
+    slots: np.ndarray       # [nb, BM] int32 slot id (-1 = none)
+    rb: np.ndarray          # [nb] int32 window start beam
+    w: np.ndarray           # [nb] int32 window width
+    off: np.ndarray         # [nb] int64 table offset, in BM-entry rows
+    table: np.ndarray       # [sum(w), BM] int16
+
+    @staticmethod
+    def build(pst: PainterStatics, n_beams: int) -> "PaintBlocks":
+        wide_ids = np.asarray(pst.wide_slots, np.int32)
+        wide = np.zeros(pst.n_slots, bool)
+        wide[wide_ids] = True
+        slots, rbs, ws, tabs = [], [], [], []
+        for reg in pst.regions:
+            for b in range(reg.nb):
+                ids = reg.lo + b * _BM + np.arange(_BM, dtype=np.int32)
+                slots.append(np.where(wide[ids], -1, ids))
+                rbs.append(int(reg.rbase[b]) if reg.W else 0)
+                ws.append(reg.W)
+                tabs.append(reg.sstep[b] if reg.W
+                            else np.zeros((0, _BM), np.int16))
+        rows = np.asarray(pst.wide_sstep, np.int16)[:len(wide_ids)]
+        for a in range(0, len(wide_ids), _BM):
+            k = len(wide_ids[a:a + _BM])
+            ids = np.full(_BM, -1, np.int32)
+            ids[:k] = wide_ids[a:a + _BM]
+            t = np.zeros((n_beams, _BM), np.int16)
+            t[:, :k] = rows[a:a + _BM].T
+            slots.append(ids)
+            rbs.append(0)
+            ws.append(n_beams)
+            tabs.append(t)
+        w = np.asarray(ws, np.int32)
+        off = np.concatenate([[0], np.cumsum(w)[:-1]]).astype(np.int64)
+        return PaintBlocks(slots=np.stack(slots).astype(np.int32),
+                           rb=np.asarray(rbs, np.int32), w=w, off=off,
+                           table=np.ascontiguousarray(
+                               np.concatenate(tabs, axis=0).astype(np.int16)))
+
+
 class PainterTables(NamedTuple):
     """Painter statics as tensors on the environment's device."""
 
@@ -410,11 +460,13 @@ class PainterTables(NamedTuple):
     region_sstep: Tuple[torch.Tensor, ...]  # per region [nb, W, BM] int16
     wide_slots: torch.Tensor               # [ns] int64
     wide_sstep: torch.Tensor               # [ns, R] int16
-    rows: Tuple[torch.Tensor, ...]         # PaintRows fields (K3)
+    rows: Tuple[torch.Tensor, ...]         # PaintRows (K3) or PaintBlocks
+                                           # (K5) fields
+    blocks: bool = False                   # rows are K5's PaintBlocks
 
 
-def make_painter_tables(pst: PainterStatics, rows: PaintRows,
-                        device) -> PainterTables:
+def make_painter_tables(pst: PainterStatics, rows, device) -> PainterTables:
+    """``rows``: PaintRows (kernel K3) or PaintBlocks (kernel K5)."""
     t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                       device=device)
     i64, i32, i16 = torch.int64, torch.int32, torch.int16
@@ -427,7 +479,8 @@ def make_painter_tables(pst: PainterStatics, rows: PaintRows,
         wide_slots=t(pst.wide_slots, i64),
         wide_sstep=t(pst.wide_sstep, i16),
         rows=(t(rows.slots, i32), t(rows.rb, i32), t(rows.w, i32),
-              t(rows.off, i64), t(rows.table, i16)))
+              t(rows.off, i64), t(rows.table, i16)),
+        blocks=isinstance(rows, PaintBlocks))
 
 
 def hit_steps(pst: PainterStatics, t: PainterTables, any_hit, first_c,
@@ -509,16 +562,24 @@ def _paint_regions(pst, t, s_hit, s_tail):
     return vals
 
 
-def paint_rows_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
-    """K3 on the card (csrc/paint.cu): [N, n_slots] f32 view values."""
+def _transposed_thresholds(t: PainterTables, s_hit, s_tail, blocks: bool):
+    """s_hit / s_tail as int32 [R, N] rows, checked against the tables."""
     if (s_hit.shape != s_tail.shape or s_hit.dim() != 2
             or s_hit.shape[1] != t.globstep.shape[0]):
         raise ValueError("paint kernel takes s_hit/s_tail [N, R] with the "
                          "tables' R beams")
-    slots, rb, w, off, table = t.rows
-    sh_t = s_hit.to(torch.int32).t().contiguous()           # [R, N]
+    if t.blocks != blocks:
+        raise ValueError("painter tables hold the other kernel's layout")
+    sh_t = s_hit.to(torch.int32).t().contiguous()
     st_t = s_tail.to(torch.int32).t().contiguous()
-    kernels.check_cuda(sh_t, st_t, slots, rb, w, off, table)
+    kernels.check_cuda(sh_t, st_t, *t.rows)
+    return sh_t, st_t
+
+
+def paint_rows_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
+    """K3 on the card (csrc/paint.cu): [N, n_slots] f32 view values."""
+    sh_t, st_t = _transposed_thresholds(t, s_hit, s_tail, blocks=False)
+    slots, rb, w, off, table = t.rows
     n = s_hit.shape[0]
     out = torch.empty((n, n_slots), dtype=torch.float32, device=s_hit.device)
     kernels.launch("paint", sh_t.data_ptr(), st_t.data_ptr(), n,
@@ -528,9 +589,25 @@ def paint_rows_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
     return out
 
 
+def paint_blocks_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
+    """K5 on the card (csrc/paint_block.cu): [N, n_slots] f32 view
+    values."""
+    sh_t, st_t = _transposed_thresholds(t, s_hit, s_tail, blocks=True)
+    slots, rb, w, off, table = t.rows
+    n, n_beams = s_hit.shape
+    out = torch.empty((n, n_slots), dtype=torch.float32, device=s_hit.device)
+    kernels.launch("paint_block", sh_t.data_ptr(), st_t.data_ptr(), n,
+                   n_beams, slots.data_ptr(), rb.data_ptr(), w.data_ptr(),
+                   off.data_ptr(), table.data_ptr(), slots.shape[0],
+                   out.data_ptr(), n_slots)
+    return out
+
+
 def paint(pst: PainterStatics, t: PainterTables, s_hit, s_tail):
-    """Exact view values [N, P'] f32: K3 for CUDA tensors, its twin for
+    """Exact view values [N, P'] f32: for CUDA tensors K5 when the tables
+    hold PaintBlocks (``paint_mode='block'``), K3 otherwise; the twin for
     CPU tensors."""
     if s_hit.is_cuda:
-        return paint_rows_kernel(t, s_hit, s_tail, pst.n_slots)
+        kernel = paint_blocks_kernel if t.blocks else paint_rows_kernel
+        return kernel(t, s_hit, s_tail, pst.n_slots)
     return paint_sorted(pst, t, s_hit, s_tail)

@@ -1,5 +1,7 @@
-"""The three CUDA kernels vs their plain-torch twins on the card, at odd
-small shapes (robot counts off the warp width, robots on the map edge).
+"""The CUDA kernels vs their plain-torch twins on the card, at odd small
+shapes: robot counts off the warp width, robots on the map edge; ped
+counts off the shared-memory tile, peds on the +-3 m window edge and
+exact range ties (K4); the gen-1 block painter with wide slots (K5).
 
 These need an NVIDIA GPU and nvcc and skip without them.  On the machine
 with the card (which has no JAX) run them without the JAX test conftest:
@@ -13,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from img_env_tpu_torch.ops import painter, polar, raster, view
+from img_env_tpu_torch.env import observe
+from img_env_tpu_torch.ops import painter, pedmap, polar, raster, view
 from img_env_tpu_torch.ops.footprint import circle_points, rectangle_points
 
 pytestmark = pytest.mark.cuda
@@ -92,3 +95,59 @@ def test_fill_and_paint_kernels_match_twins(dev, n):
     s_hit, s_tail = painter.hit_steps(pst, tt, *aux)
     got = painter.paint_rows_kernel(tt, s_hit, s_tail, pst.n_slots)
     assert torch.equal(got, painter.paint_sorted(pst, tt, s_hit, s_tail))
+
+
+def _peds(n, m, seed, dev):
+    rng = np.random.default_rng(seed)
+    poses = np.column_stack([rng.uniform(1, 9, (n, 2)),
+                             rng.uniform(-np.pi, np.pi, n)]).astype(np.float32)
+    pos = rng.uniform(0, 10, (m, 2)).astype(np.float32)
+    vel = rng.uniform(-1, 1, (m, 2)).astype(np.float32)
+    poses[0, 2] = 0.0
+    if m >= 8:
+        pos[1:4] = poses[0, :2] + [1.0, 0.5]       # three-way range tie
+        pos[4] = poses[0, :2] + [3.0, -1.0]        # on the window edge
+        pos[5] = poses[0, :2] + [-3.0, 3.0]        # on a corner
+        pos[6] = poses[0, :2]                      # range 0
+        pos[7] = poses[0, :2] + [0.3, 0.0]
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return observe.peds_in_base(t(poses), t(pos), t(vel))
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (33, 8), (37, 257), (70, 600)])
+def test_pedmap_kernel_matches_twin(dev, n, m):
+    """M off the 256-ped tile (257, 600), N off the warp width."""
+    base = _peds(n, m, n + m, dev)
+    got = pedmap.ped_map_kernel(*base, 0.125, 0.3, 48)
+    want = pedmap.ped_map_twin(*base, 0.125, 0.3, 48)
+    assert torch.equal(got, want)
+    assert bool(got[:, 0].any())
+
+
+def test_pedmap_kernel_other_sizes(dev):
+    """A 64 x 64 map (the kernel's largest) and a 20 x 20 one."""
+    base = _peds(9, 50, 3, dev)
+    for hs in (20, 64):
+        got = pedmap.ped_map_kernel(*base, 6.0 / hs, 0.25, hs)
+        want = pedmap.ped_map_twin(*base, 6.0 / hs, 0.25, hs)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        pedmap.ped_map_kernel(*base, 6.0 / 65, 0.25, 65)
+
+
+@pytest.mark.parametrize("n,beams", [(1, 32), (37, 32), (70, 360)])
+def test_paint_block_kernel_matches_twin(dev, n, beams):
+    vp = VP._replace(range_total=beams)
+    ps = polar.PolarStatics.build(vp, n_chunks=8)
+    pst = painter.PainterStatics.build(ps)
+    tt = painter.make_painter_tables(
+        pst, painter.PaintBlocks.build(pst, beams), dev)
+    rng = np.random.default_rng(n)
+    s_hit = torch.as_tensor(rng.integers(0, 60, (n, beams)),
+                            dtype=torch.int16, device=dev)
+    s_hit[:, ::3] = 2 ** 14
+    s_tail = torch.where(s_hit == 2 ** 14, s_hit, s_hit + torch.as_tensor(
+        rng.integers(1, 4, (n, beams)), dtype=torch.int16, device=dev))
+    got = painter.paint_blocks_kernel(tt, s_hit, s_tail, pst.n_slots)
+    assert torch.equal(got, painter.paint_sorted(pst, tt, s_hit, s_tail))
+    assert painter.paint(pst, tt, s_hit, s_tail).equal(got)

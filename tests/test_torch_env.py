@@ -52,6 +52,21 @@ def small_cfg_dict(n_rob=N_ROB, n_obs=3):
     }
 
 
+def ped_cfg_dict(n_rob=2, n_ped=2, n_obs=2):
+    """tests/test_env_smoke.py's small pedscene config: one leg ped, one
+    circle ped."""
+    d = small_cfg_dict(n_rob=n_rob, n_obs=n_obs)
+    d["ped_sim"] = {
+        "total": n_ped, "type": "pedscene", "max_speed": [0.5],
+        "shape": ["leg", "circle"], "size": [[0, 0.1, 0.1], [0, 0, 0.17]],
+        "begin_poses_type": ["range"], "begin_poses": [[2.0, 9.0, 2.0, 9.0]],
+        "target_poses_type": ["range"],
+        "target_poses": [[2.0, 9.0, 2.0, 9.0]], "go_back": "yes",
+    }
+    d["ped_image_size"] = [48, 48]
+    return d
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
@@ -156,13 +171,168 @@ def test_state_roundtrip(envs):
 
 
 @pytest.mark.parametrize("override", [
-    {"ped_sim": {"total": 2, "type": "pedscene"}},
+    {"ped_sim": {"total": 2, "type": "rvoscene"}},
+    {"ped_sim": {"total": 2, "type": "ervoscene"}},
     {"sensor_mode": "fast"},
+    {"sensor_mode": "reference"},
     {"use_laser": False},
-    {"paint_mode": "block"},
+    {"num_scenes": 2},
 ])
 def test_unported_options_raise(override):
     d = small_cfg_dict()
     d.update(override)
     with pytest.raises(NotImplementedError):
         NavEnv(EnvConfig.from_dict(d), "cpu")
+
+
+def test_unported_reset_arguments_raise(envs):
+    _, env_t = envs
+    state, _ = env_t.reset()
+    for kw in ({"carry": state}, {"dataset": (None, None, None)}):
+        with pytest.raises(NotImplementedError):
+            env_t.reset(**kw)
+
+
+# ---------------------------------------------------------------------
+# the crowd: pedscene (SFM leg + circle peds) and the gen-1 painter
+# ---------------------------------------------------------------------
+
+PED_EXACT = ("ped_vector_states", "ped_maps", "ped_min_dists")
+
+
+def _jax_sample(env_j, key):
+    with jax.enable_x64(False):
+        k_sample, _ = jax.random.split(key)
+        spec = env_j.statics.sampler
+        sc = jax.jit(lambda k: sample_scenario_retry(k, spec))(k_sample)
+    return ScenarioSample(*(torch.as_tensor(np.array(x)) for x in sc))
+
+
+def _jax_advance_observe(env_j, state_j, acts):
+    """The JAX state after the crowd and robot dynamics, and its
+    observation, each from one jitted program."""
+    with jax.enable_x64(False):
+        adv_j, _, _ = jax.jit(env_j.advance_fn)(state_j,
+                                                jax.numpy.asarray(acts))
+        _, obs_j = jax.jit(env_j._observe)(adv_j, env_j.sensor_tables)
+    return adv_j, obs_j
+
+
+def _assert_ped_obs_exact(obs_t, obs_j):
+    _assert_obs_exact(obs_t, obs_j)
+    for f in PED_EXACT:
+        got = getattr(obs_t, f).numpy()
+        want = np.asarray(getattr(obs_j, f))
+        assert got.shape == want.shape, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+
+
+@pytest.fixture(scope="module")
+def ped_envs():
+    with jax.enable_x64(False):
+        env_j = JaxNavEnv(JaxEnvConfig.from_dict(ped_cfg_dict()))
+    env_t = NavEnv(EnvConfig.from_dict(ped_cfg_dict()), "cpu")
+    return env_j, env_t
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ped_reset_from_jax_sample(ped_envs, seed):
+    env_j, env_t = ped_envs
+    key = jax.random.PRNGKey(seed)
+    with jax.enable_x64(False):
+        state_j, obs_j = env_j.reset(key)
+    state_t, obs_t = env_t.reset(_jax_sample(env_j, key))
+    want = _np(state_j.peds)
+    for f in state_t.peds._fields:
+        np.testing.assert_array_equal(getattr(state_t.peds, f).numpy(),
+                                      getattr(want, f), err_msg=f)
+    np.testing.assert_array_equal(state_t.robots.pose.numpy(),
+                                  np.asarray(state_j.robots.pose))
+    _assert_ped_obs_exact(obs_t, obs_j)
+    assert float(obs_t.ped_vector_states[0, 0]) == 2.0
+
+
+def test_ped_teacher_forced_steps(ped_envs):
+    """Each step starts from the JAX state.  The crowd (SFM + gait) agrees
+    within f32 rounding: positions and velocities to 1e-5, the gait phase
+    and every integer bookkeeping field exactly.  The first step of an
+    episode is the exception for velocities (5e-3, measured 1.3e-3): every
+    agent starts at rest, so the social force's interaction direction is
+    parallel to the agents' offset and the sign of the angle between them
+    (sfm.py ``theta_sign``) is rounding noise; float32 and float64 runs of
+    the same package differ by as much.  Given the same (JAX) state, every
+    observation surface is exact, including the ped layers of the packed
+    map and the ped maps and vectors."""
+    env_j, env_t = ped_envs
+    rng = np.random.default_rng(4)
+    with jax.enable_x64(False):
+        state_j, _ = env_j.reset(jax.random.PRNGKey(5))
+    n = env_t.cfg.robot.total
+    for step in range(4):
+        acts = np.stack([rng.uniform(0.1, 0.6, n), rng.uniform(-0.9, 0.9, n),
+                         np.zeros(n)], -1).astype(np.float32)
+        state_in = world_state_from_numpy(_np(state_j))
+        adv_j, obs_j = _jax_advance_observe(env_j, state_j, acts)
+        with jax.enable_x64(False):
+            state_j, _, rew_j, done_j, _ = env_j.step(state_j, acts)
+        st_t, obs_t, rew_t, done_t, _ = env_t.step_fn(state_in,
+                                                      torch.as_tensor(acts))
+        pj, pt = _np(state_j.peds), st_t.peds
+        vtol = 5e-3 if step == 0 else 1e-5
+        for f in ("pos", "prev_pos", "leg_offset"):
+            np.testing.assert_allclose(getattr(pt, f).numpy(), getattr(pj, f),
+                                       atol=1e-5, err_msg=f)
+        np.testing.assert_allclose(pt.vel.numpy(), pj.vel, atol=vtol)
+        np.testing.assert_allclose(
+            st_t.crowd_aux.robot_vel.numpy(),
+            np.asarray(state_j.crowd_aux.robot_vel), atol=vtol)
+        for f in ("traj_idx", "gait_state", "sfm_wp_idx", "sfm_has_dest",
+                  "sfm_lastdest"):
+            np.testing.assert_array_equal(getattr(pt, f).numpy(),
+                                          getattr(pj, f), err_msg=f)
+        _, obs_f = env_t._observe(world_state_from_numpy(_np(adv_j)))
+        _assert_ped_obs_exact(obs_f, obs_j)
+        np.testing.assert_array_equal(rew_t.numpy(), np.asarray(rew_j))
+        np.testing.assert_array_equal(done_t.numpy(), np.asarray(done_j))
+
+
+def test_ped_collision_code(ped_envs):
+    """A leg ped moved onto robot 0 and the circle ped next to robot 1:
+    both packages report collision code 2 (the ped bits of the packed
+    map) from the same state."""
+    env_j, env_t = ped_envs
+    with jax.enable_x64(False):
+        state_j, _ = env_j.reset(jax.random.PRNGKey(6))
+        rp = state_j.robots.pose
+        peds = state_j.peds._replace(pos=jax.numpy.stack(
+            [rp[0, :2] + 0.12, rp[1, :2] - 0.15]))
+        state_j = state_j._replace(peds=peds)
+        _, obs_j = jax.jit(env_j._observe)(state_j, env_j.sensor_tables)
+    _, obs_t = env_t._observe(world_state_from_numpy(_np(state_j)))
+    _assert_ped_obs_exact(obs_t, obs_j)
+    assert obs_t.is_collisions.tolist() == [2, 2]
+
+
+@pytest.mark.parametrize("peds", [False, True], ids=["bench", "crowd"])
+def test_block_painter_env_matches_jax(peds):
+    """paint_mode='block' (the gen-1 layout, kernel K5 on the card): reset
+    and two steps exact against the JAX package's env in the same mode."""
+    d = ped_cfg_dict() if peds else small_cfg_dict()
+    d["paint_mode"] = "block"
+    with jax.enable_x64(False):
+        env_j = JaxNavEnv(JaxEnvConfig.from_dict(d))
+    env_t = NavEnv(EnvConfig.from_dict(d), "cpu")
+    assert env_t.tables.painter.blocks
+    key = jax.random.PRNGKey(8)
+    with jax.enable_x64(False):
+        state_j, obs_j = env_j.reset(key)
+    _, obs_t = env_t.reset(_jax_sample(env_j, key))
+    _assert_ped_obs_exact(obs_t, obs_j)
+    n = env_t.cfg.robot.total
+    acts = np.tile(np.asarray([[0.4, 0.3, 0.0]], np.float32), (n, 1))
+    for _ in range(2):
+        adv_j, obs_j = _jax_advance_observe(env_j, state_j, acts)
+        with jax.enable_x64(False):
+            state_j, *_ = env_j.step(state_j, acts)
+        _, obs_f = env_t._observe(world_state_from_numpy(_np(adv_j)))
+        _assert_ped_obs_exact(obs_f, obs_j)

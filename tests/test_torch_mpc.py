@@ -34,7 +34,7 @@ from img_env_tpu_torch.env.nav_env import NavEnv
 from img_env_tpu_torch.mpc import cost, mppi
 from img_env_tpu_torch.mpc.controller import MpcController, MpcState
 
-from tests.test_torch_env import small_cfg_dict
+from tests.test_torch_env import ped_cfg_dict, small_cfg_dict
 
 K, H = 128, 12
 
@@ -160,3 +160,47 @@ def test_act_without_episode_edt_uses_static_edt():
         torch.as_tensor(noise))
     np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), atol=1e-9)
     np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=1e-9)
+
+
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("head", ["cv", "sfm"])
+def test_act_with_peds_matches_jax(head, x64):
+    """The pedscene config after two crowd steps (peds moving): the
+    avoidance set is every ped, predicted by the head, plus the other
+    robots.  Same noise, same tolerances as without peds."""
+    d = ped_cfg_dict(n_rob=3, n_ped=2)
+    tol = TOLS[x64]
+    with jax.enable_x64(x64):
+        env_j = JaxNavEnv(JaxEnvConfig.from_dict(d))
+        ctl_j = JaxMpc(env_j, jmppi.MppiConfig(horizon=H, samples=K),
+                       ped_prediction=head)
+        state_j, _ = env_j.reset(jax.random.PRNGKey(11))
+        for _ in range(2):
+            state_j, *_ = env_j.step(state_j, np.tile(
+                np.asarray([[0.3, 0.2, 0.0]]), (3, 1)))
+        key = jax.random.PRNGKey(12)
+        noise = np.array(_jax_noise(key, 3))
+        a_j, ms_j, c_j = jax.jit(ctl_j.act_fn)(key, state_j,
+                                               ctl_j.init_state())
+    assert float(jnp.abs(state_j.peds.vel).max()) > 0
+    env_t = NavEnv(EnvConfig.from_dict(d), "cpu")
+    ctl_t = MpcController(env_t, mppi.MppiConfig(horizon=H, samples=K),
+                          ped_prediction=head)
+    state_t = world_state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, state_j))
+    dtype = state_t.robots.pose.dtype
+    a_t, ms_t, c_t = ctl_t.act_fn(
+        state_t, MpcState(torch.zeros((3, H, 2), dtype=dtype)),
+        torch.as_tensor(noise))
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j),
+                               atol=tol["act"], rtol=0)
+    np.testing.assert_allclose(ms_t.nominal.numpy(), np.asarray(ms_j.nominal),
+                               atol=tol["nom"], rtol=0)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j),
+                               rtol=tol["cost"])
+
+
+def test_unported_prediction_head_raises():
+    env_t = NavEnv(EnvConfig.from_dict(ped_cfg_dict()), "cpu")
+    with pytest.raises(NotImplementedError):
+        MpcController(env_t, ped_prediction="orca")

@@ -1,5 +1,6 @@
 """The torch port imports and runs with JAX, the JAX package, OpenCV, PIL
-and yaml all absent — the installation of the machine with the GPU."""
+and yaml all absent — the installation of the machine with the GPU: one
+MPC act and env step without pedestrians, and one with the SFM crowd."""
 
 import json
 import os
@@ -7,7 +8,7 @@ import subprocess
 import sys
 import textwrap
 
-from tests.test_torch_env import small_cfg_dict
+from tests.test_torch_env import ped_cfg_dict, small_cfg_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -25,23 +26,38 @@ SCRIPT = textwrap.dedent("""
     leaked = [m for m in sys.modules if sys.modules[m] is not None
               and m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
-    env = NavEnv(EnvConfig.from_dict(json.loads(sys.argv[1])), "cpu")
-    ctl = MpcController(env, MppiConfig(horizon=4, samples=16))
+    cfg = EnvConfig.from_dict(json.loads(sys.argv[1]))
+    env = NavEnv(cfg, "cpu")
+    ctl = MpcController(env, MppiConfig(horizon=4, samples=16),
+                        ped_prediction=sys.argv[2])
     state, obs = env.reset()
     actions, _, costs = ctl.act(state, ctl.init_state())
     state, obs, reward, done, info = env.step(state, actions)
-    assert obs.sensor_maps.shape == (4, 48, 48)
-    assert bool(torch.isfinite(obs.lasers).all())
-    assert bool(torch.isfinite(costs).all())
+    n = cfg.robot.total
+    assert obs.sensor_maps.shape == (n, 48, 48)
+    assert obs.ped_maps.shape == (n, 3, 48, 48)
+    for x in (obs.lasers, obs.ped_vector_states, obs.ped_maps, costs,
+              state.peds.pos):
+        assert bool(torch.isfinite(x).all())
     print("port-ok")
 """)
 
 
-def test_port_runs_without_jax_cv2_pil_yaml():
+def _run(cfg_dict, head="cv"):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", SCRIPT,
-                           json.dumps(small_cfg_dict())], cwd=REPO, env=env,
+                           json.dumps(cfg_dict), head], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "port-ok" in proc.stdout
+
+
+def test_port_runs_without_jax_cv2_pil_yaml():
+    _run(small_cfg_dict())
+
+
+def test_port_crowd_step_without_jax_cv2_pil_yaml():
+    d = ped_cfg_dict()
+    d["paint_mode"] = "block"
+    _run(d, head="sfm")

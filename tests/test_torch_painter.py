@@ -5,7 +5,9 @@ JAX runs jitted in float32 from the same occupancy, as in production.  K3's
 twin must equal both the JAX dense decode (painter.paint_sorted) and the
 transposed Pallas kernel in interpret mode.  A numpy walk of K3's slot rows
 (PaintRows, the exact loop csrc/paint.cu runs per robot and row) holds the
-kernel's table layout to the twin on the CPU.
+kernel's table layout to the twin on the CPU; a walk of K5's 64-slot blocks
+(PaintBlocks, csrc/paint_block.cu's loop) does the same for the gen-1
+layout, which must also equal the gen-1 Pallas kernel in interpret mode.
 """
 
 import jax
@@ -16,6 +18,8 @@ import torch
 
 from img_env_tpu.ops import painter as jpainter
 from img_env_tpu.ops import polar as jpolar
+from img_env_tpu.ops.pallas_paint import (PaintKernelStatics as JPaintK,
+                                          paint_sorted_pallas)
 from img_env_tpu.ops.pallas_paint_t import (PaintTStatics as JPaintT,
                                             paint_sorted_pallas_t)
 from img_env_tpu_torch.ops import painter, polar, view
@@ -130,3 +134,65 @@ def test_paint_twin_robot_chunks(statics):
     np.testing.assert_array_equal(
         _emulate_rows(rows, s_hit.numpy(), s_tail.numpy(), pst_t.n_slots),
         a.numpy())
+
+
+def _emulate_blocks(blocks, s_hit, s_tail, n_slots):
+    """csrc/paint_block.cu's loop in numpy: per 64-slot block, walk the
+    window (beams clipped to R - 1), max the key (w << 2) | code per slot,
+    decode."""
+    n, r = s_hit.shape
+    sh, st = s_hit.astype(np.int64), s_tail.astype(np.int64)
+    out = np.full((n, n_slots), np.nan, np.float32)
+    for b in range(blocks.slots.shape[0]):
+        acc = np.full((n, 64), -1, np.int64)
+        for wp in range(blocks.w[b]):
+            beam = min(blocks.rb[b] + wp, r - 1)
+            T = blocks.table[blocks.off[b] + wp].astype(np.int64)[None, :]
+            h, t = sh[:, beam:beam + 1], st[:, beam:beam + 1]
+            code = np.where(T <= 0, 0, np.where(
+                T <= h, 2, np.where(T == h + 1, 3, np.where(T > t, 1, 0))))
+            acc = np.where(code > 0, np.maximum(acc, (wp << 2) | code), acc)
+        c = acc & 3
+        val = np.where(acc < 0, 200.0, np.where(
+            c == 2, 255.0, np.where(c == 3, 0.0, 200.0)))
+        for g, slot in enumerate(blocks.slots[b]):
+            if slot >= 0:
+                assert np.isnan(out[0, slot]), "slot written twice"
+                out[:, slot] = val[:, g]
+    return out
+
+
+@pytest.mark.parametrize("beams", [32, 360])
+def test_paint_blocks_layout_matches_twin_and_gen1_kernel(rng, beams):
+    """K5's blocks cover every slot once; their walk equals the twin and
+    the JAX gen-1 Pallas kernel (paint_mode='block') on the same
+    thresholds, which come from a real raycast.  At 360 beams a
+    near-sensor slot is "wide" and rides in a pack over all beams."""
+    vp = VP._replace(range_total=beams)
+    ps_j = jpolar.PolarStatics.build(vp, n_chunks=8)
+    pst_j = jpainter.PainterStatics.build(ps_j)
+    ps_t = polar.PolarStatics.build(view.ViewParams(*vp), n_chunks=8)
+    pst_t = painter.PainterStatics.build(ps_t)
+    assert (len(pst_t.wide_slots) > 0) == (beams > 256)
+    assert any(reg.W == 0 for reg in pst_t.regions)
+    blocks = painter.PaintBlocks.build(pst_t, beams)
+    ids = blocks.slots[blocks.slots >= 0]
+    assert np.array_equal(np.sort(ids), np.arange(pst_t.n_slots))
+    assert blocks.table.shape == (int(blocks.w.sum()), 64)
+    t_polar = polar.make_tables(ps_t, np.zeros((5, ps_t.n_slots), bool),
+                                "cpu")
+    tb = painter.make_painter_tables(pst_t, blocks, "cpu")
+    assert tb.blocks
+    occ = _occupancy(rng, ps_j)
+    _, _, aux = polar.raycast_batched(ps_t, t_polar, torch.as_tensor(occ))
+    s_hit, s_tail = painter.hit_steps(pst_t, tb, *aux)
+    want = painter.paint(pst_t, tb, s_hit, s_tail)
+    with jax.enable_x64(False):
+        gen1 = paint_sorted_pallas(pst_j, JPaintK.build(pst_j),
+                                   jnp.asarray(s_hit.numpy()),
+                                   jnp.asarray(s_tail.numpy()),
+                                   interpret=True)
+    np.testing.assert_array_equal(want.numpy(), np.asarray(gen1))
+    np.testing.assert_array_equal(
+        _emulate_blocks(blocks, s_hit.numpy(), s_tail.numpy(),
+                        pst_t.n_slots), want.numpy())

@@ -14,8 +14,9 @@ obstacles and 200 SFM leg pedestrians):
   3. NavEnv(cfg, "cuda") + MpcController for bench200 and bench200ped;
   4. holds each kernel bit-equal to its plain-torch twin at the production
      shapes and times both: K1 raster, K2 FOV fill, K3 painter and K5
-     gen-1 painter at bench200, K4 ped map at bench200ped (its reset, and a
-     copy with forced ties and peds on the window edge);
+     gen-1 painter at bench200, K4 ped map at bench200ped (its reset with
+     a seeded velocity per ped, and a copy with forced ties and peds on the
+     window edge);
   5. the bench200 path: reset + control steps (act, then step);
   6. the crowd path: bench200ped reset + 3 warm-up and 20 timed control
      steps, the bench.py crowd checksum; every step launches K1-K4, and
@@ -231,7 +232,8 @@ def selfcheck(env, state):
     v_b = painter.paint_blocks_kernel(tb, s_hit, s_tail, st.painter.n_slots)
     mism = int((v_b != v_t).sum())
     log(f"# K5 block paint: {mism} mismatched slots of {v_b.numel()} "
-        f"({tb.rows[0].shape[0]} blocks, {tb.rows[4].shape[0]} window rows)")
+        f"({tb.blocks[0].shape[0]} blocks, {tb.blocks[4].shape[0]} window "
+        "rows)")
     if mism:
         raise AssertionError("K5 block paint kernel != twin")
     out["paint_block"] = (
@@ -246,8 +248,11 @@ def selfcheck(env, state):
 def selfcheck_pedmap(env, state):
     """K4 against its twin on the crowd reset's base-frame peds (N = M =
     200), and on a copy with forced ties (every odd ped stacked on its even
-    neighbour), peds on the +-3 m window edge and on the robot; returns
-    (max_abs_err, ms, plain_ms)."""
+    neighbour), peds on the +-3 m window edge and on the robot.  Each ped
+    carries its own velocity (seeded), so the vx/vy channels name the
+    winning ped: on the tie copy, the twin with ties given to the smaller
+    index must differ from the twin, or the check could not see K4's
+    winner rule.  Returns (max_abs_err, ms, plain_ms)."""
     from img_env_tpu_torch.env import observe
     from img_env_tpu_torch.ops import pedmap
 
@@ -255,7 +260,10 @@ def selfcheck_pedmap(env, state):
     hs, r_img = int(cfg.ped_image_size[0]), float(cfg.ped_image_r)
     res = 6.0 / hs
     pos = state.peds.pos
-    vel = state.peds.vel + 0.25          # reset velocities are all 0
+    gen = torch.Generator(device=pos.device)
+    gen.manual_seed(0)
+    # the reset's velocities are all 0: draw one per ped in [-1, 1]^2
+    vel = torch.rand(pos.shape, generator=gen, device=pos.device) * 2 - 1
     stacked = pos.clone()
     stacked[1::2] = stacked[0::2]
     reset = observe.peds_in_base(state.robots.pose, pos, vel)
@@ -272,10 +280,19 @@ def selfcheck_pedmap(env, state):
         want = pedmap.ped_map_twin(*base, res, r_img, hs)
         mism = int((got != want).sum())
         err = max(err, float((got - want).abs().max()))
+        occ = want[:, 0] > 0
+        n_vx = int(torch.unique(want[:, 1][occ]).numel())
         log(f"# K4 ped map: {mism} mismatched of {got.numel()}, "
-            f"{int(got[:, 0].sum())} occupied pixels")
+            f"{int(occ.sum())} occupied pixels, {n_vx} distinct vx")
         if mism:
             raise AssertionError("K4 ped-map kernel != twin")
+    # ties to the smaller index: the twin over the peds in reverse order
+    flipped = pedmap.ped_map_twin(*(x.flip(1) for x in base), res, r_img, hs)
+    seen = int((flipped[:, 1:] != want[:, 1:]).sum())
+    log(f"# K4 tie rule: {seen} vx/vy values change when ties go to the "
+        "smaller index")
+    if seen == 0:
+        raise AssertionError("K4 check cannot see the tie rule")
     return (err, cuda_ms(lambda: pedmap.ped_map_kernel(*base, res, r_img,
                                                        hs), 50),
             cuda_ms(lambda: pedmap.ped_map_twin(*base, res, r_img, hs), 5))

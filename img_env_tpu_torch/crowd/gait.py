@@ -51,10 +51,7 @@ def update_gait(gait_state, gait_residual, move_dist, rest_left_xy,
     steps = div_const(total, GAIT_STEP_LEN).to(torch.int32)
     new_state = steps + gait_state
     k = (new_state - gait_state).to(total.dtype)
-    if total.dtype == torch.float32:
-        new_residual = fma(-k, torch.full_like(k, GAIT_STEP_LEN), total)
-    else:
-        new_residual = total - k * GAIT_STEP_LEN
+    new_residual = fma(-k, torch.full_like(k, GAIT_STEP_LEN), total)
     new_state = torch.remainder(new_state, GAIT_PHASES)
 
     left_mult, right_mult, rest_phase = _tables(total.device, total.dtype)

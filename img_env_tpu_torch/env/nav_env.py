@@ -113,11 +113,14 @@ UNPORTED_SCENES = ("rvoscene", "ervoscene", "dataset")
 
 
 def check_supported(cfg: EnvConfig) -> None:
-    """Raise NotImplementedError for what this port does not run yet."""
-    if cfg.ped_sim.total > 0 and cfg.ped_sim.type in UNPORTED_SCENES:
-        raise NotImplementedError(
-            f"crowd model {cfg.ped_sim.type!r} is not ported (pedscene "
-            "only)")
+    """Raise NotImplementedError for what this port does not run yet, and
+    ValueError for a crowd model that does not exist."""
+    scene = cfg.ped_sim.type
+    if cfg.ped_sim.total > 0 and scene not in ("", "pedscene"):
+        if scene in UNPORTED_SCENES:
+            raise NotImplementedError(
+                f"crowd model {scene!r} is not ported (pedscene only)")
+        raise ValueError(f"unknown crowd model ped_sim.type {scene!r}")
     if cfg.sensor_mode != "parity":
         raise NotImplementedError(
             f"sensor_mode {cfg.sensor_mode!r} is not ported (only 'parity')")
@@ -330,14 +333,14 @@ class NavEnv:
         # the painter's launch table: K5's 64-slot blocks for
         # paint_mode='block', K3's slot rows otherwise
         if cfg.paint_mode == "block":
-            rows = painter_mod.PaintBlocks.build(st.painter, n_beams)
+            layout = painter_mod.PaintBlocks.build(st.painter, n_beams)
         else:
-            rows = painter_mod.PaintRows.build(st.paint_t, n_beams)
+            layout = painter_mod.PaintRows.build(st.paint_t, n_beams)
         ang = torch.as_tensor(st.view_statics.laser.angles,
                               dtype=torch.float32, device=dev)
         self.tables = SensorTables(
             polar=polar_mod.make_tables(st.polar, own_mask, dev),
-            painter=painter_mod.make_painter_tables(st.painter, rows, dev),
+            painter=painter_mod.make_painter_tables(st.painter, layout, dev),
             robot_points=torch.as_tensor(st.robot_points, device=dev),
             robot_mask=torch.as_tensor(st.robot_mask, device=dev),
             beam_dirs=torch.stack([torch.cos(ang), torch.sin(ang)], -1))
@@ -513,42 +516,38 @@ class NavEnv:
             return peds, aux
         _, new_idx = crowd_common.advance_traj_goals(
             peds.pos, peds.traj, peds.traj_len, peds.traj_idx)
-        if self.scene_type == "pedscene":
-            # peds + robot mirrors as one SFM population; the pedsim
-            # queue is [goal (r=1)] + trajectory (pedscene.h:39-47) and
-            # its fetch head travels in the sfm_lastdest slot
-            n = cfg.robot.total
-            rob = state.robots
-            zi = torch.zeros((n,), dtype=torch.int32, device=self.device)
-            wq = 1 + peds.traj.shape[1]
-            wp = sfm_mod.SfmWaypointState(
-                wp_xy=torch.cat([
-                    torch.cat([peds.goal[:, None], peds.traj], 1),
-                    peds.traj.new_zeros((n, wq, 2))]),
-                wp_r=torch.cat([ct.wp_r, ct.wp_r.new_zeros((n, wq))]),
-                wp_len=torch.cat([1 + peds.traj_len, zi]),
-                dest_idx=torch.cat([peds.sfm_wp_idx, zi]),
-                head=torch.cat([peds.sfm_lastdest, zi]),
-                has_dest=torch.cat([peds.sfm_has_dest,
-                                    torch.zeros_like(zi, dtype=torch.bool)]))
-            aabb = state.obstacles.aabb
-            seg_valid = torch.full((aabb.shape[0],),
-                                   not cfg.ped_sim.ignore_obstacle,
-                                   dtype=torch.bool, device=self.device)
-            all_pos, all_vel, new_wp = sfm_mod.sfm_step(
-                torch.cat([peds.pos, rob.pose[:, :2]]),
-                torch.cat([peds.vel, aux.robot_vel]),
-                ct.sfm_vmax, ct.sfm_valid, wp, aabb[:, :2], aabb[:, 2:],
-                seg_valid, float(cfg.control_hz))
-            new_pos, new_vel = all_pos[:m], all_vel[:m]
-            aux = CrowdAuxState(robot_vel=all_vel[m:])
-            peds = peds._replace(sfm_wp_idx=new_wp.dest_idx[:m],
-                                 sfm_has_dest=new_wp.has_dest[:m],
-                                 sfm_lastdest=new_wp.head[:m])
-        else:
-            # any other scene type keeps its peds in place (as the JAX
-            # package does); the unported models were refused at build
-            new_pos, new_vel = peds.pos, peds.vel
+        # pedscene (check_supported refused every other model): peds +
+        # robot mirrors as one SFM population; the pedsim queue is
+        # [goal (r=1)] + trajectory (pedscene.h:39-47) and its fetch head
+        # travels in the sfm_lastdest slot
+        n = cfg.robot.total
+        rob = state.robots
+        zi = torch.zeros((n,), dtype=torch.int32, device=self.device)
+        wq = 1 + peds.traj.shape[1]
+        wp = sfm_mod.SfmWaypointState(
+            wp_xy=torch.cat([
+                torch.cat([peds.goal[:, None], peds.traj], 1),
+                peds.traj.new_zeros((n, wq, 2))]),
+            wp_r=torch.cat([ct.wp_r, ct.wp_r.new_zeros((n, wq))]),
+            wp_len=torch.cat([1 + peds.traj_len, zi]),
+            dest_idx=torch.cat([peds.sfm_wp_idx, zi]),
+            head=torch.cat([peds.sfm_lastdest, zi]),
+            has_dest=torch.cat([peds.sfm_has_dest,
+                                torch.zeros_like(zi, dtype=torch.bool)]))
+        aabb = state.obstacles.aabb
+        seg_valid = torch.full((aabb.shape[0],),
+                               not cfg.ped_sim.ignore_obstacle,
+                               dtype=torch.bool, device=self.device)
+        all_pos, all_vel, new_wp = sfm_mod.sfm_step(
+            torch.cat([peds.pos, rob.pose[:, :2]]),
+            torch.cat([peds.vel, aux.robot_vel]),
+            ct.sfm_vmax, ct.sfm_valid, wp, aabb[:, :2], aabb[:, 2:],
+            seg_valid, float(cfg.control_hz))
+        new_pos, new_vel = all_pos[:m], all_vel[:m]
+        aux = CrowdAuxState(robot_vel=all_vel[m:])
+        peds = peds._replace(sfm_wp_idx=new_wp.dest_idx[:m],
+                             sfm_has_dest=new_wp.has_dest[:m],
+                             sfm_lastdest=new_wp.head[:m])
         yaw = torch.atan2(new_vel[:, 1], new_vel[:, 0])
         move = f32.sqrt(((new_pos - peds.pos) ** 2).sum(-1))
         gstate, gres, legs = gait_mod.update_gait(

@@ -30,30 +30,22 @@ def vector_state(pose, goal_xy, goal_yaw, vw_last0, state_dim: int):
     raise ValueError(f"state_dim {state_dim} not in (3, 4, 5)")
 
 
-def _rotate(c, s, x, y):
-    """(c x + s y, -s x + c y).  In float32 each row is one fused
-    multiply-add, contracted as XLA contracts the JAX package's
-    expressions: the product with c is the fused one in both."""
-    if x.dtype == torch.float32:
-        return f32.fma(c, x, s * y), f32.fma(c, y, -s * x)
-    return c * x + s * y, -s * x + c * y
-
-
 def peds_in_base(robot_pose, ped_pos, ped_vel):
     """Ped positions / velocities in each robot's base frame
     (img_env.cpp:568-583).  Returns (px, py, vx, vy) each [N, M].  In
-    float32 the robot yaw's sin/cos carry glibc's bits (ops/f32.py), so
+    float32 the robot yaw's sin/cos carry glibc's bits and each row
+    ``c x + s y`` / ``c y - s x`` is one fused multiply-add on the product
+    with c, as XLA contracts the JAX package's expressions (ops/f32.py), so
     the CPU, the card and the JAX package's CPU build agree bit for bit."""
-    yaw = robot_pose[:, 2]
-    if yaw.dtype == torch.float32:
-        s, c = f32.sin_cos(yaw)
-    else:
-        s, c = torch.sin(yaw), torch.cos(yaw)
-    c, s = c[:, None], s[:, None]
+    s, c = f32.sin_cos(robot_pose[:, 2])
+    c, s = c[None, :, None], s[None, :, None]
+    n, m = robot_pose.shape[0], ped_pos.shape[0]
     d = ped_pos[None, :, :] - robot_pose[:, None, :2]      # [N,M,2]
-    px, py = _rotate(c, s, d[..., 0], d[..., 1])
-    vx, vy = _rotate(c, s, ped_vel[None, :, 0], ped_vel[None, :, 1])
-    return px, py, vx, vy
+    v = ped_vel[None, :, :].expand(n, m, 2)
+    # the four rows in one multiply-add over [4, N, M]
+    x = torch.stack([d[..., 0], d[..., 1], v[..., 0], v[..., 1]])
+    y = torch.stack([d[..., 1], -d[..., 0], v[..., 1], -v[..., 0]])
+    return f32.fma(c, x, s * y).unbind(0)
 
 
 def ped_vectors_and_map(robot_pose, ped_pos, ped_vel, ped_r, robot_r,
@@ -74,12 +66,12 @@ def ped_vectors_and_map(robot_pose, ped_pos, ped_vel, ped_r, robot_r,
     head = torch.full((n, 1), float(m), dtype=px.dtype, device=px.device)
     tail = px.new_zeros((n, ped_vec_dim * (max_ped - k)))
     if k > 0:
-        order = torch.argsort(pedmap.range_sq(px, py), dim=1,
-                              stable=True)[:, :k]
+        rsq = pedmap.range_sq(px, py)
+        order = torch.argsort(rsq, dim=1, stable=True)[:, :k]
         tk = lambda x: torch.gather(x, 1, order)
         pxs, pys = tk(px), tk(py)
         rr = ped_r[order]
-        dist = f32.sqrt(pedmap.range_sq(pxs, pys))
+        dist = f32.sqrt(tk(rsq))
         block = torch.stack([pxs, pys, tk(vx), tk(vy), rr,
                              rr + robot_r[:, None], dist], dim=-1)
         vec = torch.cat([head, block.reshape(n, k * ped_vec_dim), tail], 1)

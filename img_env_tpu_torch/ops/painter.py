@@ -29,7 +29,7 @@ of both.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -460,17 +460,20 @@ class PainterTables(NamedTuple):
     region_sstep: Tuple[torch.Tensor, ...]  # per region [nb, W, BM] int16
     wide_slots: torch.Tensor               # [ns] int64
     wide_sstep: torch.Tensor               # [ns, R] int16
-    rows: Tuple[torch.Tensor, ...]         # PaintRows (K3) or PaintBlocks
-                                           # (K5) fields
-    blocks: bool = False                   # rows are K5's PaintBlocks
+    rows: Optional[Tuple[torch.Tensor, ...]]     # K3's PaintRows fields
+    blocks: Optional[Tuple[torch.Tensor, ...]]   # K5's PaintBlocks fields
 
 
-def make_painter_tables(pst: PainterStatics, rows, device) -> PainterTables:
-    """``rows``: PaintRows (kernel K3) or PaintBlocks (kernel K5)."""
+def make_painter_tables(pst: PainterStatics, layout, device) -> PainterTables:
+    """``layout``: PaintRows (kernel K3) or PaintBlocks (kernel K5); the
+    other kernel's field is None."""
     t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                       device=device)
     i64, i32, i16 = torch.int64, torch.int32, torch.int16
     r = pst.globstep.shape[0]
+    launch = (t(layout.slots, i32), t(layout.rb, i32), t(layout.w, i32),
+              t(layout.off, i64), t(layout.table, i16))
+    blocks = isinstance(layout, PaintBlocks)
     return PainterTables(
         globstep=t(pst.globstep, i64),
         nxt=t(pst.nxt_flat.reshape(r, pst.n_steps), i64),
@@ -478,9 +481,8 @@ def make_painter_tables(pst: PainterStatics, rows, device) -> PainterTables:
         region_sstep=tuple(t(g.sstep, i16) for g in pst.regions),
         wide_slots=t(pst.wide_slots, i64),
         wide_sstep=t(pst.wide_sstep, i16),
-        rows=(t(rows.slots, i32), t(rows.rb, i32), t(rows.w, i32),
-              t(rows.off, i64), t(rows.table, i16)),
-        blocks=isinstance(rows, PaintBlocks))
+        rows=None if blocks else launch,
+        blocks=launch if blocks else None)
 
 
 def hit_steps(pst: PainterStatics, t: PainterTables, any_hit, first_c,
@@ -562,23 +564,24 @@ def _paint_regions(pst, t, s_hit, s_tail):
     return vals
 
 
-def _transposed_thresholds(t: PainterTables, s_hit, s_tail, blocks: bool):
-    """s_hit / s_tail as int32 [R, N] rows, checked against the tables."""
+def _transposed_thresholds(t: PainterTables, s_hit, s_tail, launch):
+    """s_hit / s_tail as int32 [R, N] rows, checked against the tables and
+    the kernel's ``launch`` table."""
     if (s_hit.shape != s_tail.shape or s_hit.dim() != 2
             or s_hit.shape[1] != t.globstep.shape[0]):
         raise ValueError("paint kernel takes s_hit/s_tail [N, R] with the "
                          "tables' R beams")
-    if t.blocks != blocks:
+    if launch is None:
         raise ValueError("painter tables hold the other kernel's layout")
     sh_t = s_hit.to(torch.int32).t().contiguous()
     st_t = s_tail.to(torch.int32).t().contiguous()
-    kernels.check_cuda(sh_t, st_t, *t.rows)
+    kernels.check_cuda(sh_t, st_t, *launch)
     return sh_t, st_t
 
 
 def paint_rows_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
     """K3 on the card (csrc/paint.cu): [N, n_slots] f32 view values."""
-    sh_t, st_t = _transposed_thresholds(t, s_hit, s_tail, blocks=False)
+    sh_t, st_t = _transposed_thresholds(t, s_hit, s_tail, t.rows)
     slots, rb, w, off, table = t.rows
     n = s_hit.shape[0]
     out = torch.empty((n, n_slots), dtype=torch.float32, device=s_hit.device)
@@ -592,8 +595,8 @@ def paint_rows_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
 def paint_blocks_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
     """K5 on the card (csrc/paint_block.cu): [N, n_slots] f32 view
     values."""
-    sh_t, st_t = _transposed_thresholds(t, s_hit, s_tail, blocks=True)
-    slots, rb, w, off, table = t.rows
+    sh_t, st_t = _transposed_thresholds(t, s_hit, s_tail, t.blocks)
+    slots, rb, w, off, table = t.blocks
     n, n_beams = s_hit.shape
     out = torch.empty((n, n_slots), dtype=torch.float32, device=s_hit.device)
     kernels.launch("paint_block", sh_t.data_ptr(), st_t.data_ptr(), n,
@@ -608,6 +611,7 @@ def paint(pst: PainterStatics, t: PainterTables, s_hit, s_tail):
     hold PaintBlocks (``paint_mode='block'``), K3 otherwise; the twin for
     CPU tensors."""
     if s_hit.is_cuda:
-        kernel = paint_blocks_kernel if t.blocks else paint_rows_kernel
+        kernel = (paint_rows_kernel if t.blocks is None
+                  else paint_blocks_kernel)
         return kernel(t, s_hit, s_tail, pst.n_slots)
     return paint_sorted(pst, t, s_hit, s_tail)

@@ -33,9 +33,7 @@ PEDMAP_MAX_PIXELS = 512 * 8    # csrc/pedmap.cu: 512 threads x 8 pixels
 
 def range_sq(px, py):
     """Base-frame range^2, contracted as XLA contracts it in float32."""
-    if px.dtype == torch.float32:
-        return fma(px, px, py * py)
-    return px * px + py * py
+    return fma(px, px, py * py)
 
 
 def _r2(ped_image_r: float) -> float:

@@ -185,6 +185,14 @@ def test_unported_options_raise(override):
         NavEnv(EnvConfig.from_dict(d), "cpu")
 
 
+def test_unknown_crowd_model_raises():
+    """A misspelled crowd model is refused, not run as a frozen crowd."""
+    d = small_cfg_dict()
+    d.update(ped_sim={"total": 2, "type": "pedscen"})
+    with pytest.raises(ValueError, match="pedscen"):
+        NavEnv(EnvConfig.from_dict(d), "cpu")
+
+
 def test_unported_reset_arguments_raise(envs):
     _, env_t = envs
     state, _ = env_t.reset()
@@ -322,7 +330,7 @@ def test_block_painter_env_matches_jax(peds):
     with jax.enable_x64(False):
         env_j = JaxNavEnv(JaxEnvConfig.from_dict(d))
     env_t = NavEnv(EnvConfig.from_dict(d), "cpu")
-    assert env_t.tables.painter.blocks
+    assert env_t.tables.painter.blocks is not None
     key = jax.random.PRNGKey(8)
     with jax.enable_x64(False):
         state_j, obs_j = env_j.reset(key)

@@ -182,7 +182,7 @@ def test_paint_blocks_layout_matches_twin_and_gen1_kernel(rng, beams):
     t_polar = polar.make_tables(ps_t, np.zeros((5, ps_t.n_slots), bool),
                                 "cpu")
     tb = painter.make_painter_tables(pst_t, blocks, "cpu")
-    assert tb.blocks
+    assert tb.blocks is not None and tb.rows is None
     occ = _occupancy(rng, ps_j)
     _, _, aux = polar.raycast_batched(ps_t, t_polar, torch.as_tensor(occ))
     s_hit, s_tail = painter.hit_steps(pst_t, tb, *aux)

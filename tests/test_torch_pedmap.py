@@ -11,6 +11,7 @@ kernel's winner rule to the twin on the CPU.
 """
 
 import ctypes
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -180,6 +181,70 @@ def test_sqrt_and_fma_round_once():
     with jax.enable_x64(False):
         want = np.asarray(jax.jit(lambda a, b: a * a + b * b)(a, b))
     np.testing.assert_array_equal(pedmap.range_sq(T(a), T(b)).numpy(), want)
+
+
+def test_sin_cos_beyond_the_fast_reduction():
+    """|y| >= 120 leaves glibc's fast path (and the int32 quotient's range
+    past ~200): the float64 sin/cos rounded to float32 stay within an ulp
+    of XLA's, and the base frame of a robot that has turned for a long
+    time stays right."""
+    rng = np.random.default_rng(2)
+    y = np.concatenate([[119.99, 120.0, -120.0, 150.0, 202.0, 300.0, -300.0,
+                         1e4, 3e6], rng.uniform(-1e5, 1e5, 2000)]
+                       ).astype(np.float32)
+    with jax.enable_x64(False):
+        s_j = np.asarray(jax.jit(jnp.sin)(y))
+        c_j = np.asarray(jax.jit(jnp.cos)(y))
+    s, c = f32.sin_cos(T(y))
+    ulp = lambda v: np.spacing(np.abs(v).astype(np.float32))
+    assert (np.abs(s.numpy() - s_j) <= ulp(s_j)).all()
+    assert (np.abs(c.numpy() - c_j) <= ulp(c_j)).all()
+    poses, ped_pos, ped_vel, _, _ = _scene(6)
+    poses[:, 2] = np.float32([150.0, 300.0, -300.0, 1e4, 207.3, -151.0, 5.0])
+    with jax.enable_x64(False):
+        base_j = jax.jit(jobserve.peds_in_base)(poses, ped_pos, ped_vel)
+    base = observe.peds_in_base(T(poses), T(ped_pos), T(ped_vel))
+    for got, want in zip(base, base_j):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def _fma_exact(a, b, c):
+    """float32 nearest to the exact a * b + c, ties to even."""
+    v = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    g = np.float32(float(v))
+    near = [np.nextafter(g, np.float32(-np.inf)), g,
+            np.nextafter(g, np.float32(np.inf))]
+    return min(near, key=lambda q: (abs(Fraction(float(q)) - v),
+                                    int(np.float32(q).view(np.int32)) & 1))
+
+
+def test_fma_has_no_double_rounding():
+    """Sums that float64 rounds onto a float32 midpoint: rounding the
+    float64 a * b + c again would land on the wrong neighbour; ops/f32.fma
+    matches the exactly rounded value, XLA's contraction and, on random
+    inputs, both."""
+    a = np.float32([4097 / 4096, 4097 / 4096, 1 + 2 ** -23])
+    b = np.float32([4097 / 4096, 4099 / 4096, 2 ** -24 * (1 - 2 ** -23)])
+    c = np.float32([2 ** -60, -2 ** -60, 1 + 2 ** -23])
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    exact = np.float32([_fma_exact(*x) for x in zip(a, b, c)])
+    assert (twice != exact).all()
+    rng = np.random.default_rng(3)
+    ra, rb, rc = (rng.uniform(-5, 5, 20000).astype(np.float32)
+                  for _ in range(3))
+    rc[::3] *= np.float32(1e-9)
+    a, b, c = (np.concatenate(p) for p in ((a, ra), (b, rb), (c, rc)))
+    got = f32.fma(T(a), T(b), T(c)).numpy()
+    with jax.enable_x64(False):
+        xla = np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, b, c))
+    np.testing.assert_array_equal(got[:3], exact)
+    np.testing.assert_array_equal(got, xla)
+    np.testing.assert_array_equal(
+        got[:500], [_fma_exact(*x) for x in zip(a[:500], b[:500], c[:500])])
+    inf = np.float32([np.inf, -np.inf, 1.0])
+    assert f32.fma(T(inf), T(np.ones(3, np.float32)),
+                   T(np.float32([0, 1, np.nan]))).numpy().tolist()[:2] == \
+        [np.inf, -np.inf]
 
 
 def test_empty_crowd_map():

@@ -4,9 +4,11 @@
 
 Drives ``img_env_tpu_torch`` through its user entry points at the bench
 configurations: bench200 (bench.py:31-56: 200 robots, 200 obstacles, 16 m
-room at 0.015 m, 400x400 views, 960-beam lasers, MPPI K=128 H=12) and the
+room at 0.015 m, 400x400 views, 960-beam lasers, MPPI K=128 H=12), the
 crowd line bench200ped (bench.py:362-389: the same 200 robots with no
-obstacles and 200 SFM leg pedestrians):
+obstacles and 200 SFM leg pedestrians) and bench200ervo (bench200ped with
+the ERVO crowd: ORCA pedestrians that step away from beeping robots,
+beep_r 1.0 and ped_ca_p 0.8 as in img_env_tpu/configs/ervo_crowd.yaml):
 
   1. versions and the card (nvidia-smi name, power limit);
   2. builds the five CUDA kernels from ``img_env_tpu_torch/csrc`` (one
@@ -22,12 +24,21 @@ obstacles and 200 SFM leg pedestrians):
      steps, the bench.py crowd checksum; every step launches K1-K4, and
      the last warm-up step runs with host syncs made errors
      (torch.cuda.set_sync_debug_mode);
-  7. the block-painter path: bench200 with paint_mode='block', reset + 3
+  7. the ERVO path: bench200ervo reset + 3 warm-up and 12 timed control
+     steps ('cv' head) with the even robots beeping; every step launches
+     K1-K4 and never K5, the last warm-up step without host syncs; then
+     the device operations and time of one ORCA crowd step;
+  8. the 'orca' prediction head: bench200ervo reset + 3 control steps
+     with MpcController(ped_prediction="orca");
+  9. the block-painter path: bench200 with paint_mode='block', reset + 3
      steps through K5 (never K3), its sensor maps and lasers equal to the
      default env's from one state;
-  8. the small test configs, without and with pedestrians, on the card vs
-     the same port on the CPU (the CPU port is held to the JAX package by
-     tests/test_torch_*.py).
+ 10. the small configs on the card vs the same port on the CPU (the CPU
+     port is held to the JAX package by tests/test_torch_*.py): the test
+     config without and with SFM pedestrians, copies of the shipped
+     test.yaml (rvoscene, range_circle poses) and ervo_crowd.yaml
+     (ervoscene, beeps), and a dataset scene replaying a seeded synthetic
+     trajectory; each ends with a reset that carries the last state over.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Any failed phase raises.  Prints the kernels' JSON line, then as its last
@@ -40,6 +51,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -96,6 +108,10 @@ BENCH200PED = {
     "sensor_mode": "parity",
 }
 
+BENCH200ERVO = dict(BENCH200PED, env_name="bench200ervo",
+                    ped_sim=dict(BENCH200PED["ped_sim"], type="ervoscene"),
+                    beep_r=1.0, ped_ca_p=0.8)
+
 SMALL = {
     "robot": {"total": 4, "shape": ["circle"], "size": [[0.0, 0.0, 0.17]],
               "begin_poses_type": ["range"],
@@ -124,11 +140,75 @@ SMALL_PED = dict(SMALL, robot=dict(SMALL["robot"], total=2),
                           "go_back": "yes"},
                  ped_image_size=[48, 48])
 
+# the shipped crowd configs (img_env_tpu/configs/test.yaml and
+# ervo_crowd.yaml) with the views shrunk as in SMALL
+_LIMITS = dict(min_velocity=0, max_velocity=0.6, min_acceleration=-1.6,
+               max_acceleration=5)
+_W_LIMITS = dict(min_velocity=-0.9, max_velocity=0.9, min_acceleration=-0.6,
+                 max_acceleration=2)
+_SHAPES4 = dict(shape=["circle", "rectangle", "circle", "rectangle"],
+                poses_type=["range"] * 4)
+SMALL_RVO = {
+    "env_name": "test", "control_hz": 0.4, "laser_max": 6.0,
+    "ped_safety_space": 0.7, "circle_ranges": [1.8, 2.0],
+    "continuous_actions": [[0, 0.6], [-0.9, 0.9]],
+    "max_ped": 10, "ped_vec_dim": 7, "ped_image_r": 0.3,
+    "view_angle_begin": -1.570795, "view_angle_end": 1.570795,
+    "view_min_dist": 0.0, "view_max_dist": 10.0,
+    "beep_r": 1.0, "ped_ca_p": 1.0, "relation_ped_robo": 1,
+    "speed_limiter_v": _LIMITS, "speed_limiter_w": _W_LIMITS,
+    "global_map": {"resolution": 0.1, "map_file": "room_10.png"},
+    "view_map": {"resolution": 0.05, "width": 3, "height": 3},
+    "image_size": [48, 48], "ped_image_size": [48, 48], "range_total": 96,
+    "robot": {"total": 1, "shape": ["circle"], "size": [[0, 0, 0.17]],
+              "begin_poses_type": ["range_circle"],
+              "begin_poses": [[5.5, 5.5]],
+              "target_poses_type": ["range_circle"],
+              "target_poses": [[5.5, 5.5]]},
+    "object": dict(_SHAPES4, total=4,
+                   size_range=[[0.3, 0.3], [-0.15, 0.15, -0.15, 0.15],
+                               [0.3, 0.3], [-0.15, 0.15, -0.15, 0.15]],
+                   poses=[[2.5, 8.5, 2.5, 8.5]] * 4),
+    "ped_sim": {"total": 4, "type": "rvoscene", "max_speed": [0.5] * 4,
+                "shape": ["leg"] * 4, "size": [[0, 0.1, 0.1]] * 4,
+                "begin_poses_type": ["range_circle"] * 4,
+                "begin_poses": [[5.5, 5.5]] * 4,
+                "target_poses_type": ["range_circle"] * 4,
+                "target_poses": [[5.5, 5.5]] * 4, "go_back": "yes"},
+    "target_min_dist": 1.0,
+}
+_BOX = [[1.5, 9.0, 1.5, 9.0]]
+SMALL_ERVO = dict(
+    SMALL_RVO, env_name="ervo_crowd", control_hz=0.25, laser_max=10.0,
+    laser_norm=True, ped_safety_space=0.4, state_dim=5, ped_ca_p=0.8,
+    continuous_actions=[[0, 0.6], [-0.9, 0.9], [-0.6, 0.6]],
+    speed_limiter_v=dict(_LIMITS, has_velocity_limits=True,
+                         has_acceleration_limits=True),
+    speed_limiter_w=dict(_W_LIMITS, has_velocity_limits=True,
+                         has_acceleration_limits=True),
+    robot=dict(SMALL_RVO["robot"], begin_poses_type=["range"],
+               begin_poses=_BOX, target_poses_type=["range"],
+               target_poses=_BOX),
+    object=dict(SMALL_RVO["object"],
+                size_range=[[0.2, 0.3], [-0.15, 0.15, -0.15, 0.15],
+                            [0.2, 0.3], [-0.15, 0.15, -0.15, 0.15]],
+                poses=[[2.0, 9.0, 2.0, 9.0]]),
+    ped_sim={"total": 8, "type": "ervoscene", "max_speed": [0.5],
+             "shape": ["leg"], "size": [[0, 0.1, 0.1]],
+             "begin_poses_type": ["range"], "begin_poses": _BOX,
+             "target_poses_type": ["range"], "target_poses": _BOX,
+             "go_back": "yes"},
+    target_min_dist=2.0)
+SMALL_DATASET = dict(SMALL_PED, ped_sim=dict(
+    SMALL_PED["ped_sim"], total=4, type="dataset", shape=["circle"],
+    size=[[0, 0, 0.17]], max_speed=[1.0]))
+
 K = 128
 H = 12
 WARMUP = 3
 ITERS = 20          # timed crowd steps
 BENCH_ITERS = 10    # timed bench200 steps
+ERVO_ITERS = 12     # timed ERVO steps
 BLOCK_STEPS = 3     # block-painter steps
 
 
@@ -298,25 +378,37 @@ def selfcheck_pedmap(env, state):
             cuda_ms(lambda: pedmap.ped_map_twin(*base, res, r_img, hs), 5))
 
 
+class PathRun(NamedTuple):
+    state0: object        # the reset state
+    state: object         # after the last step
+    ms_step: float
+    launches: dict
+    checksum: float
+    obs: object
+    beeps: float          # beeping robots summed over the steps
+
+
 def run_path(env, ctl, warmup: int, iters: int, must_launch, never=(),
-             crowd: bool = False):
+             crowd: bool = False, beep: bool = False) -> PathRun:
     """Reset + ``warmup`` + ``iters`` control steps (act, then step) with
     the launch counts set to 0 just before and read just after.  Every
     step must launch each kernel of ``must_launch`` and none of ``never``;
-    the last warm-up step runs with host syncs made errors.  Returns
-    (reset state, state, ms/step, launches, checksum, obs)."""
+    the last warm-up step runs with host syncs made errors.  ``beep``: the
+    even robots beep (the action's third column; MPPI leaves it 0)."""
     from img_env_tpu_torch.ops import kernels
 
     kernels.reset_launch_counts()
     state, obs = env.reset()
     state0 = state
     mpc_state = ctl.init_state()
-    checksum = torch.zeros((), dtype=torch.float64, device=env.device)
-    cost_sum = torch.zeros((), dtype=torch.float64, device=env.device)
+    zero = lambda: torch.zeros((), dtype=torch.float64, device=env.device)
+    checksum, cost_sum, beeps = zero(), zero(), zero()
 
     def control_step(state, mpc_state):
         before = dict(kernels.LAUNCHES)
         actions, mpc_state, costs = ctl.act(state, mpc_state)
+        if beep:
+            actions[0::2, 2] = 1.0
         state, obs, reward, done, info = env.step(state, actions)
         chk = obs.sensor_maps.sum() + obs.lasers.sum()
         if crowd:   # bench.py:410-412: every crowd observation surface
@@ -329,28 +421,66 @@ def run_path(env, ctl, warmup: int, iters: int, must_launch, never=(),
         if idle or bad:
             raise AssertionError(f"a control step launched no {idle} / "
                                  f"launched {bad}")
-        return state, mpc_state, obs, chk, costs.sum()
+        return state, mpc_state, obs, chk, costs.sum(), info["beeps"].sum()
+
+    def run(state, mpc_state):
+        state, mpc_state, obs, chk, c, b = control_step(state, mpc_state)
+        checksum.add_(chk)
+        cost_sum.add_(c)
+        beeps.add_(b)
+        return state, mpc_state, obs
 
     for i in range(warmup):
         # the last warm-up step runs with host syncs made errors: act and
         # step must stay capturable in a CUDA graph
         torch.cuda.set_sync_debug_mode("error" if i == warmup - 1 else 0)
-        state, mpc_state, obs, chk, c = control_step(state, mpc_state)
-        checksum += chk
-        cost_sum += c
+        state, mpc_state, obs = run(state, mpc_state)
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        state, mpc_state, obs, chk, c = control_step(state, mpc_state)
-        checksum += chk
-        cost_sum += c
+        state, mpc_state, obs = run(state, mpc_state)
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) / max(iters, 1) * 1e3
     launches = dict(kernels.LAUNCHES)
     if not (bool(torch.isfinite(checksum)) and bool(torch.isfinite(cost_sum))):
         raise AssertionError("non-finite checksum or MPC costs")
-    return state0, state, ms_step, launches, float(checksum), obs
+    return PathRun(state0, state, ms_step, launches, float(checksum), obs,
+                   float(beeps))
+
+
+def orca_step_cost(env, state):
+    """Device operations, device busy ms and host ms of one ORCA crowd
+    step (``NavEnv._orca_step``) from ``state``, the even robots beeping:
+    operations and busy time from one call under torch.profiler, host ms
+    over 5 synchronised calls."""
+    from img_env_tpu_torch.crowd import common
+
+    cfg = env.cfg
+    r, p = state.robots, state.peds
+    v_y = torch.zeros(r.pose.shape[0], device=env.device)
+    v_y[0::2] = 1.0
+    sources, radii, _ = common.sample_beeps(
+        r.pose, v_y, float(cfg.beep_r), float(cfg.ped_ca_p),
+        generator=env.generator)
+    goals, _ = common.advance_traj_goals(p.pos, p.traj, p.traj_len,
+                                         p.traj_idx)
+    step = lambda: env._orca_step(state, goals, sources, radii)
+    step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    return len(dev), busy, (time.perf_counter() - t0) / 5 * 1e3
 
 
 def check_shapes(obs, expect):
@@ -393,17 +523,36 @@ def block_path(cfg_dict, env_default):
     return launches
 
 
-PED_POS_TOL = 1e-4     # m: one SFM step, card vs CPU (exp/atan2 ulps)
-PED_VEL_TOL = 5e-3     # m/s: the first step from rest is ill-conditioned
+# crowd step, card vs CPU, from one state: (m, m/s) per crowd model
+PED_TOL = {
+    "pedscene": (1e-4, 5e-3),    # SFM: exp/atan2 ulps; the first step from
+                                 # rest is ill-conditioned (ROADMAP F15)
+    "rvoscene": (1e-3, 2e-3),    # ORCA: nearly parallel LP lines amplify
+    "ervoscene": (1e-3, 2e-3),   # ulps (tests/test_torch_orca.py)
+    "dataset": (0.0, 0.0),       # replay: a gather
+}
 
 
-def small_reference(cfg_dict, device):
-    """A small test config on the card vs the same port on the CPU, from
-    one layout and one noise draw per step.  Each step is observed from
-    the CPU state on both devices (teacher forcing), so transcendental
-    rounding cannot accumulate.  With peds, the ped maps, ped vectors and
-    min distances must be equal and the crowd step within PED_*_TOL.
-    Returns the worst mismatch fractions and differences."""
+def synthetic_dataset(m: int, t: int, dt: float, seed: int = 0):
+    """Seeded replay arrays (traj [m,t,2], vel [m,t,2], length [m]) of
+    random walks inside the 10 m room, each series of its own length."""
+    g = torch.Generator().manual_seed(seed)
+    steps = (torch.rand((m, t, 2), generator=g) - 0.5) * 0.4
+    traj = 3.0 + 4.0 * torch.rand((m, 1, 2), generator=g) + steps.cumsum(1)
+    length = torch.randint(t // 2, t + 1, (m,), generator=g, dtype=torch.int32)
+    return traj, steps / dt, length
+
+
+def small_reference(cfg_dict, device, dataset=None):
+    """A small config on the card vs the same port on the CPU, from one
+    layout, one noise draw and one beep draw per step.  Each step is
+    observed from the CPU state on both devices (teacher forcing), so
+    transcendental rounding cannot accumulate.  With peds, the ped maps,
+    ped vectors and min distances must be equal and the crowd step within
+    PED_TOL; the ORCA crowds' split segments must be equal.  The ERVO
+    config's even robots beep.  It ends with a reset on both devices that
+    carries the last CPU state over, whose states and observations must be
+    equal.  Returns the worst mismatch fractions and differences."""
     from img_env_tpu_torch import EnvConfig, MpcController, MppiConfig, NavEnv
     from img_env_tpu_torch.core.convert import (world_state_from_numpy,
                                                 world_state_to_numpy)
@@ -411,29 +560,43 @@ def small_reference(cfg_dict, device):
 
     cfg = EnvConfig.from_dict(cfg_dict)
     peds = cfg.ped_sim.total > 0
+    scene = cfg.ped_sim.type if peds else ""
+    n = cfg.robot.total
     env_c, env_g = NavEnv(cfg, "cpu"), NavEnv(cfg, device)
     ctl_c = MpcController(env_c, MppiConfig(horizon=H, samples=K))
     ctl_g = MpcController(env_g, MppiConfig(horizon=H, samples=K))
     to_g = lambda s: world_state_from_numpy(world_state_to_numpy(s), device)
+    on_g = lambda sc: type(sc)(*(x.to(device) for x in sc))
     sample = env_c.sample_scenario()
-    st_c, obs_c = env_c.reset(sample)
-    st_g, obs_g = env_g.reset(type(sample)(*(x.to(device) for x in sample)))
+    st_c, obs_c = env_c.reset(sample, dataset=dataset)
+    st_g, obs_g = env_g.reset(on_g(sample), dataset=dataset)
     if not torch.equal(st_c.obs_map, st_g.obs_map.cpu()):
         raise AssertionError("small config: obstacle maps differ")
+    segs_c, segs_g = st_c.obstacles.segs, st_g.obstacles.segs
+    if scene in ("rvoscene", "ervoscene") and (segs_c is None
+                                              or segs_g is None):
+        raise AssertionError("small config: split segments missing")
+    if segs_c is not None and not all(
+            torch.equal(a, b.cpu()) for a, b in zip(segs_c, segs_g)):
+        raise AssertionError("small config: split segments differ")
     worst = {"sensor_maps": 0.0, "lasers": 0.0, "actions": 0.0}
     if peds:
-        worst.update(ped_pos=0.0, ped_vel=0.0)
+        worst.update(ped_pos=0.0, ped_vel=0.0, beeps=0)
     exact = ["is_collisions", "is_arrives"]
     if peds:
         exact += ["ped_maps", "ped_vector_states", "ped_min_dists"]
-    ms = ctl_c.init_state()
-    for step in range(4):
+
+    def check_obs(obs_c, obs_g):
         for f in exact:
             if not torch.equal(getattr(obs_c, f), getattr(obs_g, f).cpu()):
                 raise AssertionError(f"small config: {f} differ")
         for f in ("sensor_maps", "lasers"):
             a, b = getattr(obs_c, f), getattr(obs_g, f).cpu()
             worst[f] = max(worst[f], float((a != b).float().mean()))
+
+    ms = ctl_c.init_state()
+    for step in range(4):
+        check_obs(obs_c, obs_g)
         if step == 3:
             break
         noise = ctl_c.draw_noise()
@@ -443,9 +606,13 @@ def small_reference(cfg_dict, device):
         worst["actions"] = max(worst["actions"],
                                float((a_c - a_g.cpu()).abs().max()))
         ms = ms_next
-        adv_c, _, _ = env_c.advance_fn(st_c, a_c)
+        if scene == "ervoscene":
+            a_c[0::2, 2] = 1.0
+        u = torch.rand(n, generator=env_c.generator)
+        adv_c, _, beeps = env_c.advance_fn(st_c, a_c, u)
         if peds:
-            adv_g, _, _ = env_g.advance_fn(to_g(st_c), a_c.to(device))
+            adv_g, _, _ = env_g.advance_fn(to_g(st_c), a_c.to(device),
+                                           u.to(device))
             for f in ("pos", "vel"):
                 d = float((getattr(adv_c.peds, f)
                            - getattr(adv_g.peds, f).cpu()).abs().max())
@@ -453,14 +620,31 @@ def small_reference(cfg_dict, device):
             if not torch.equal(adv_c.peds.gait_state,
                                adv_g.peds.gait_state.cpu()):
                 raise AssertionError("small config: gait phases differ")
+            worst["beeps"] += int(beeps.sum())
         _, obs_g = env_g._observe(to_g(adv_c))
-        st_c, obs_c, *_ = env_c.step(st_c, a_c)
+        st_c, obs_c = env_c._observe(adv_c)      # the CPU step
     if worst["actions"] > 1e-3 or max(worst["sensor_maps"],
                                       worst["lasers"]) > 0.01:
         raise AssertionError(f"small config: card vs CPU {worst}")
-    if peds and (worst["ped_pos"] > PED_POS_TOL
-                 or worst["ped_vel"] > PED_VEL_TOL):
-        raise AssertionError(f"small crowd config: card vs CPU {worst}")
+    if peds:
+        pos_tol, vel_tol = PED_TOL[scene]
+        if worst["ped_pos"] > pos_tol or worst["ped_vel"] > vel_tol:
+            raise AssertionError(f"small crowd config: card vs CPU {worst}")
+        if scene == "ervoscene" and worst["beeps"] == 0:
+            raise AssertionError("small ERVO config: no robot beeped")
+
+    # the next episode, carrying the last state over
+    sample, prev = env_c.sample_scenario(), st_c
+    st_c, obs_c = env_c.reset(sample, carry=prev, dataset=dataset)
+    st_g, obs_g = env_g.reset(on_g(sample), carry=to_g(prev),
+                              dataset=dataset)
+    for a, b in zip(world_state_to_numpy(st_c).peds,
+                    world_state_to_numpy(st_g).peds):
+        if not (a == b).all():
+            raise AssertionError("small config: carried ped states differ")
+    if not torch.equal(st_c.robots.vw_last1, st_g.robots.vw_last1.cpu()):
+        raise AssertionError("small config: carried commands differ")
+    check_obs(obs_c, obs_g)
     return worst
 
 
@@ -509,51 +693,86 @@ def main() -> None:
     checks["pedmap"] = selfcheck_pedmap(env_p, state_p)
 
     # ---- the bench200 path ----
-    _, state, ms_step, launches, chk, obs = run_path(
-        env, ctl, WARMUP, BENCH_ITERS, ("raster", "fill", "paint"),
-        never=("paint_block", "pedmap"))
+    run = run_path(env, ctl, WARMUP, BENCH_ITERS, ("raster", "fill", "paint"),
+                   never=("paint_block", "pedmap"))
+    launches, state = run.launches, run.state
     n = env.cfg.robot.total
-    check_shapes(obs, {"sensor_maps": (n, 48, 48), "lasers": (n, 960),
-                       "vector_states": (n, 3), "angular_maps": (n, 72)})
-    log(f"# bench200 control step: {ms_step:.3f} ms/step over {BENCH_ITERS} "
-        f"steps (+{WARMUP} warm-up), checksum {chk:.6f}, "
-        f"arrived {int(state.robots.arrive.sum())}/{n}, "
+    check_shapes(run.obs, {"sensor_maps": (n, 48, 48), "lasers": (n, 960),
+                           "vector_states": (n, 3), "angular_maps": (n, 72)})
+    log(f"# bench200 control step: {run.ms_step:.3f} ms/step over "
+        f"{BENCH_ITERS} steps (+{WARMUP} warm-up), checksum "
+        f"{run.checksum:.6f}, arrived {int(state.robots.arrive.sum())}/{n}, "
         f"collided {int((state.robots.collision > 0).sum())}/{n}, "
         f"launches {launches}")
 
+    def crowd_path(name, env_c, ctl_c, iters, beep=False):
+        """A crowd path (K1-K4 on every step, never K5); logs and checks
+        its outcome.  Returns its PathRun and peak memory (GiB)."""
+        torch.cuda.reset_peak_memory_stats()
+        run = run_path(env_c, ctl_c, WARMUP, iters,
+                       ("raster", "fill", "paint", "pedmap"),
+                       never=("paint_block",), crowd=True, beep=beep)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_shapes(run.obs, {"sensor_maps": (n, 48, 48),
+                               "lasers": (n, 960),
+                               "ped_vector_states": (n, 71),
+                               "ped_maps": (n, 3, 48, 48)})
+        if run.obs.ped_min_dists.shape != (n,):
+            raise AssertionError(f"{name} path: bad ped_min_dists")
+        st = run.state
+        moved = float((st.peds.pos - run.state0.peds.pos).norm(dim=-1)
+                      .mean())
+        codes = torch.bincount(st.robots.collision.long(), minlength=4)
+        steps = WARMUP + iters
+        log(f"# {name} control step: {run.ms_step:.3f} ms/step over {iters} "
+            f"steps (+{WARMUP} warm-up), checksum {run.checksum:.6f}, peds "
+            f"moved {moved:.3f} m on average, ped-map occupancy "
+            f"{int(run.obs.ped_maps[:, 0].sum())} px, beeps "
+            f"{run.beeps / steps:.1f} per step, arrived "
+            f"{int(st.robots.arrive.sum())}/{n}, collision codes 0/1/2/3 "
+            f"{codes.tolist()}, launches {run.launches} ({steps} steps + "
+            f"reset), peak memory {peak:.3f} GiB, "
+            f"{env_c.cfg.ped_sim.total} peds")
+        if moved <= 0.0:
+            raise AssertionError(f"{name} path: the peds did not move")
+        if beep and run.beeps == 0:
+            raise AssertionError(f"{name} path: no robot beeped")
+        return run, peak
+
     # ---- the crowd path (bench200ped) ----
+    run_p, _ = crowd_path("crowd", env_p, ctl_p, ITERS)
+    launches_p = run_p.launches
+
+    # ---- the ERVO path (bench200ervo), then the 'orca' head ----
+    env_e, ctl_e, _ = make(BENCH200ERVO)
+    run_e, _ = crowd_path("ERVO", env_e, ctl_e, ERVO_ITERS, beep=True)
+    ops, busy, host = orca_step_cost(env_e, run_e.state)
+    log(f"# ORCA crowd step at bench200ervo: {ops} device operations, "
+        f"device busy {busy:.3f} ms, host {host:.3f} ms per step"
+        + ("" if ops else " (profiler saw no device events: not measured)"))
+    ctl_o = MpcController(env_e, MppiConfig(horizon=H, samples=K),
+                          ped_prediction="orca")
     torch.cuda.reset_peak_memory_stats()
-    state0, state_p, ms_p, launches_p, chk_p, obs_p = run_path(
-        env_p, ctl_p, WARMUP, ITERS, ("raster", "fill", "paint", "pedmap"),
-        never=("paint_block",), crowd=True)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    m = env_p.cfg.ped_sim.total
-    check_shapes(obs_p, {"sensor_maps": (n, 48, 48), "lasers": (n, 960),
-                         "ped_vector_states": (n, 71),
-                         "ped_maps": (n, 3, 48, 48)})
-    if obs_p.ped_min_dists.shape != (n,):
-        raise AssertionError("crowd path: bad ped_min_dists")
-    moved = float((state_p.peds.pos - state0.peds.pos).norm(dim=-1).mean())
-    codes = torch.bincount(state_p.robots.collision.long(), minlength=4)
-    steps_p = WARMUP + ITERS
-    log(f"# crowd control step: {ms_p:.3f} ms/step over {ITERS} steps "
-        f"(+{WARMUP} warm-up), checksum {chk_p:.6f}, peds moved "
-        f"{moved:.3f} m on average, ped-map occupancy "
-        f"{int(obs_p.ped_maps[:, 0].sum())} px, arrived "
-        f"{int(state_p.robots.arrive.sum())}/{n}, collision codes "
-        f"0/1/2/3 {codes.tolist()}, launches {launches_p} "
-        f"({steps_p} steps + reset), peak memory {peak:.3f} GiB, "
-        f"{m} peds")
-    if moved <= 0.0:
-        raise AssertionError("crowd path: the peds did not move")
+    run_o = run_path(env_e, ctl_o, 1, 2, ("raster", "fill", "paint",
+                                          "pedmap"),
+                     never=("paint_block",), crowd=True, beep=True)
+    log(f"# 'orca' head: {run_o.ms_step:.3f} ms/step over 2 steps (+1 "
+        f"warm-up) vs the 'cv' head's {run_e.ms_step:.3f}, checksum "
+        f"{run_o.checksum:.6f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
     # ---- the block-painter path ----
     launches_b = block_path(BENCH200, env)
     log(f"# block-painter path: launches {launches_b} "
         f"(reset + {BLOCK_STEPS} steps)")
 
-    for name, cfg_dict in (("small", SMALL), ("small crowd", SMALL_PED)):
-        worst = small_reference(cfg_dict, "cuda")
+    for name, cfg_dict, ds in (
+            ("small", SMALL, None), ("small crowd", SMALL_PED, None),
+            ("test.yaml (rvoscene)", SMALL_RVO, None),
+            ("ervo_crowd.yaml (ervoscene)", SMALL_ERVO, None),
+            ("small dataset", SMALL_DATASET,
+             synthetic_dataset(4, 24, SMALL_DATASET["control_hz"]))):
+        worst = small_reference(cfg_dict, "cuda", ds)
         log(f"# {name} config card vs CPU: worst {worst}")
 
     src = "img_env_tpu_torch/csrc/"

@@ -1,6 +1,6 @@
 """Crowd-model-independent pedestrian bookkeeping (torch port of
-``img_env_tpu.crowd.common``): trajectory waypoint cycling and beep
-sampling (img_env.cpp:304-359).
+``img_env_tpu.crowd.common``): trajectory waypoint cycling, beep sampling
+(img_env.cpp:304-359) and the dataset replay (img_env.cpp:361-386).
 
 Beeps are drawn every step, crowd or not (nav_env.py's ``_crowd_step``):
 the beep flags land in ``RobotState.beep``.
@@ -62,3 +62,13 @@ def sample_beeps(robot_pose, v_y, beep_r: float, ped_ca_p: float,
     radii = torch.where(responds, torch.full_like(u, beep_r),
                         torch.zeros_like(u))
     return sources, radii, responds.to(torch.int32)
+
+
+def dataset_replay(step, traj, traj_v, traj_len):
+    """Dataset scene: pose and velocity at the step index, clamped to each
+    ped's series (img_env.cpp:361-386).  traj, traj_v: [M,T,2]; step: []
+    int.  Returns (pos [M,2], vel [M,2], yaw [M])."""
+    idx = torch.minimum(step.expand(traj_len.shape), traj_len - 1).clamp(
+        min=0).long()
+    pos, vel = _take(traj, idx), _take(traj_v, idx)
+    return pos, vel, torch.atan2(vel[:, 1], vel[:, 0])

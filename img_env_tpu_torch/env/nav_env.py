@@ -7,18 +7,21 @@
 
 One ``NavEnv`` owns the host-built statics (map, footprints, sampler spec,
 sensor geometry) and their tensors on ``device``.  Step pipeline (ordering
-matches ImgEnv::_step, img_env.cpp:421-525): beeps -> crowd (SFM + gait)
--> robot kinematics -> raster (kernel K1: robots; peds' legs and bodies)
-and collision codes -> flat sensor pass: FOV fill (K2), raycast, exact
-painter (K3, or K5 with ``paint_mode='block'``), self stamp, 48x48 resize
--> ped vectors and ped maps (K4) -> observation -> reward/done.  On a CUDA
+matches ImgEnv::_step, img_env.cpp:421-525): beeps -> crowd (SFM, ORCA,
+ERVO or dataset replay; gait) -> robot kinematics -> raster (kernel K1:
+robots; peds' legs and bodies) and collision codes -> flat sensor pass:
+FOV fill (K2), raycast, exact painter (K3, or K5 with
+``paint_mode='block'``), self stamp, 48x48 resize -> ped vectors and ped
+maps (K4) -> observation -> reward/done.  On a CUDA
 device the kernels always run; on the CPU their plain-torch twins do.
 
-Ported: one scene, robots and obstacles, pedestrians with the ``pedscene``
-(SFM) crowd model or none, one sensor placement shared by all robots,
-``use_laser`` and ``sensor_mode='parity'``.  Everything else raises
-``NotImplementedError``.  ``step_fn`` and the observation make no host
-syncs.
+Ported: one scene, robots and obstacles, pedestrians with the
+``pedscene`` (SFM), ``rvoscene`` (ORCA), ``ervoscene`` (ORCA with the beep
+evacuation) or ``dataset`` (trajectory replay) crowd model or none, the
+reset's ``carry`` and ``dataset`` arguments, one sensor placement shared by
+all robots, ``use_laser`` and ``sensor_mode='parity'``.  Everything else
+raises ``NotImplementedError``.  ``step_fn`` and the observation make no
+host syncs; the reset does (the sampler's retries, the segment split).
 """
 
 from __future__ import annotations
@@ -41,7 +44,9 @@ from img_env_tpu_torch.core.state import (
 )
 from img_env_tpu_torch.crowd import common as crowd_common
 from img_env_tpu_torch.crowd import gait as gait_mod
+from img_env_tpu_torch.crowd import orca as orca_mod
 from img_env_tpu_torch.crowd import sfm as sfm_mod
+from img_env_tpu_torch.crowd.obstacle_split import split_segments
 from img_env_tpu_torch.dynamics.kinematics import batched_robot_cmd
 from img_env_tpu_torch.dynamics.limiter import LimiterParams
 from img_env_tpu_torch.env import maps as maps_mod
@@ -107,19 +112,17 @@ class EnvStatics(NamedTuple):
     limiter_w: LimiterParams
     painter: painter_mod.PainterStatics
     paint_t: painter_mod.PaintTStatics
+    orca_cfg: orca_mod.OrcaConfig
 
 
-UNPORTED_SCENES = ("rvoscene", "ervoscene", "dataset")
+SCENES = ("", "pedscene", "rvoscene", "ervoscene", "dataset")
 
 
 def check_supported(cfg: EnvConfig) -> None:
     """Raise NotImplementedError for what this port does not run yet, and
     ValueError for a crowd model that does not exist."""
     scene = cfg.ped_sim.type
-    if cfg.ped_sim.total > 0 and scene not in ("", "pedscene"):
-        if scene in UNPORTED_SCENES:
-            raise NotImplementedError(
-                f"crowd model {scene!r} is not ported (pedscene only)")
+    if cfg.ped_sim.total > 0 and scene not in SCENES:
         raise ValueError(f"unknown crowd model ped_sim.type {scene!r}")
     if cfg.sensor_mode != "parity":
         raise NotImplementedError(
@@ -257,6 +260,9 @@ def build_statics(cfg: EnvConfig) -> EnvStatics:
         limiter_v=LimiterParams.from_config(cfg.speed_limiter_v),
         limiter_w=LimiterParams.from_config(cfg.speed_limiter_w),
         painter=pst, paint_t=painter_mod.PaintTStatics.build(pst),
+        orca_cfg=orca_mod.OrcaConfig(
+            time_step=float(cfg.control_hz),
+            max_obs_segments=int(cfg.max_obs_segments)),
     )
 
 
@@ -289,6 +295,7 @@ class CrowdTables(NamedTuple):
                                    # (r = 1), then the scripted waypoints
     sfm_vmax: torch.Tensor         # [M+N] f32: peds, then robot mirrors
     sfm_valid: torch.Tensor        # [M+N] bool
+    orca_radius: torch.Tensor      # [M] f32: every ped's ORCA radius
 
 
 def make_crowd_tables(st: EnvStatics, cfg: EnvConfig, device) -> CrowdTables:
@@ -308,7 +315,8 @@ def make_crowd_tables(st: EnvStatics, cfg: EnvConfig, device) -> CrowdTables:
         robot_radius=f32(st.robot_radius),
         wp_r=f32(np.concatenate([np.ones((m, 1)), traj_r], axis=1)),
         sfm_vmax=f32(np.concatenate([st.ped_max_speed, np.full(n, 1.2)])),
-        sfm_valid=b(np.concatenate([np.ones(m, bool), np.full(n, rel)])))
+        sfm_valid=b(np.concatenate([np.ones(m, bool), np.full(n, rel)])),
+        orca_radius=f32(np.full(m, st.orca_cfg.radius)))
 
 
 class NavEnv:
@@ -365,20 +373,26 @@ class NavEnv:
         return self._observe(state)
 
     def reset_state_fn(self, sample: Optional[ScenarioSample] = None,
-                       carry=None, dataset=None) -> WorldState:
+                       carry: Optional[WorldState] = None,
+                       dataset=None) -> WorldState:
         """Map, EDT, robot and ped state for an episode, without the sensor
-        pass.  ``sample``: an injected layout (default: a fresh draw)."""
-        if carry is not None or dataset is not None:
-            raise NotImplementedError(
-                "reset with carry= or dataset= is not ported")
+        pass.  ``sample``: an injected layout (default: a fresh draw).
+        ``carry``: the previous episode's state, whose robots' command
+        before last, ped velocities, gait and robot crowd velocities carry
+        over.  ``dataset``: (traj [M,T,2], vel [M,T,2], length [M]) replay
+        arrays for the ``dataset`` scene (ETH/UCY, img_env.cpp:361-386;
+        datasets/pedestrians.py); the peds then start from frame 0."""
         if sample is None:
             sample = self.sample_scenario()
-        return self.reset_from_sample(sample)
+        return self.reset_from_sample(sample, carry, dataset)
 
-    def reset_from_sample(self, sc: ScenarioSample) -> WorldState:
+    def reset_from_sample(self, sc: ScenarioSample,
+                          carry: Optional[WorldState] = None,
+                          dataset=None) -> WorldState:
         st = self.statics
+        cfg = self.cfg
         dev = self.device
-        n = self.cfg.robot.total
+        n, m = cfg.robot.total, cfg.ped_sim.total
         f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
         obs_pose = f32(sc.obs_pose)
         circle_r = f32(sc.obs_circle_r)
@@ -401,12 +415,22 @@ class NavEnv:
         zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
         robots = RobotState(
             pose=init[:n], goal=target[:n, :2], goal_yaw=init[:n, 2],
-            vw_last0=z(n, 2), vw_last1=z(n, 2), vel_world=z(n, 2),
-            collision=zi(n), arrive=zb(n), beep=zi(n))
-        peds = self._reset_peds(init[n:], target[n:], sc.go_back)
+            vw_last0=z(n, 2),
+            vw_last1=carry.robots.vw_last1 if carry is not None else z(n, 2),
+            vel_world=z(n, 2), collision=zi(n), arrive=zb(n), beep=zi(n))
+        peds = self._reset_peds(init[n:], target[n:], sc.go_back, carry,
+                                dataset)
+
+        # rvoscene/ervoscene: RVO2's kd-tree segment split, once per
+        # episode (processObs; KdTree.cpp:131-257)
+        segs = None
+        if (self.scene_type in ("rvoscene", "ervoscene") and m > 0
+                and not cfg.ped_sim.ignore_obstacle and aabb.shape[0] > 0):
+            segs, _ = split_segments(
+                aabb, torch.ones(aabb.shape[0], dtype=torch.bool, device=dev))
         obstacles = ObstacleState(
             pose=obs_pose, size=z(obs_pose.shape[0], 4),
-            is_circle=is_circ, aabb=aabb)
+            is_circle=is_circ, aabb=aabb, segs=segs)
 
         # episode clearance field (static map + sampled obstacles), which
         # the MPC cost reads
@@ -415,17 +439,22 @@ class NavEnv:
                                clip_cells=clip)
         return WorldState(
             robots=robots, peds=peds,
-            crowd_aux=CrowdAuxState(robot_vel=z(n, 2)),
+            crowd_aux=CrowdAuxState(
+                robot_vel=(carry.crowd_aux.robot_vel if carry is not None
+                           else z(n, 2))),
             obstacles=obstacles, obs_map=obs_map, obs_edt=obs_edt,
             step=torch.zeros((), dtype=torch.int32, device=dev),
             prev_goal_dist=z(n),
             has_prev_dist=torch.zeros((), dtype=torch.bool, device=dev))
 
-    def _reset_peds(self, init, target, go_back) -> PedState:
+    def _reset_peds(self, init, target, go_back, carry=None,
+                    dataset=None) -> PedState:
         """Ped state at reset (nav_env.py of the JAX package): the goal,
         then the start again when going back, or the scripted waypoints
         (Agent.trajectory, img_env.cpp:243-250; reset_helper.py:337-342);
-        legs at their rest offsets; the SFM queue at its first waypoint."""
+        legs at their rest offsets; the SFM queue at its first waypoint.
+        A replayed dataset sets the start pose and velocity (frame 0); a
+        carried state, the velocity (without a dataset) and the gait."""
         st = self.statics
         ct = self.crowd
         dev = self.device
@@ -444,18 +473,33 @@ class NavEnv:
             scripted, torch.as_tensor(st.ped_wp_count, dtype=torch.int32,
                                       device=dev), back)
         zi = torch.zeros((m,), dtype=torch.int32, device=dev)
-        z2 = init.new_zeros((m, 2))
+        if dataset is not None:
+            ds_traj, ds_vel = (torch.as_tensor(x, dtype=torch.float32,
+                                               device=dev)
+                               for x in dataset[:2])
+            ds_len = torch.as_tensor(dataset[2], dtype=torch.int32,
+                                     device=dev)
+            v0 = ds_vel[:, 0]
+            init = torch.cat([ds_traj[:, 0],
+                              torch.atan2(v0[:, 1:2], v0[:, 0:1])], -1)
+            vel = v0
+        else:
+            ds_traj = init.new_zeros((m, 1, 2))
+            ds_vel = init.new_zeros((m, 1, 2))
+            ds_len = torch.ones((m,), dtype=torch.int32, device=dev)
+            vel = (carry.peds.vel if carry is not None
+                   else init.new_zeros((m, 2)))
         return PedState(
-            pos=init[:, :2], yaw=init[:, 2], prev_pos=init[:, :2], vel=z2,
+            pos=init[:, :2], yaw=init[:, 2], prev_pos=init[:, :2], vel=vel,
             goal=goal, traj=traj, traj_len=traj_len, traj_idx=zi,
-            gait_state=zi, gait_residual=init.new_zeros((m,)),
+            gait_state=carry.peds.gait_state if carry is not None else zi,
+            gait_residual=(carry.peds.gait_residual if carry is not None
+                           else init.new_zeros((m,))),
             leg_offset=torch.stack([ct.rest_left, ct.rest_right], 1),
             sfm_wp_idx=zi,
             sfm_has_dest=torch.ones((m,), dtype=torch.bool, device=dev),
             sfm_lastdest=torch.full((m,), -1, dtype=torch.int32, device=dev),
-            dataset_traj=init.new_zeros((m, 1, 2)),
-            dataset_vel=init.new_zeros((m, 1, 2)),
-            dataset_len=torch.ones((m,), dtype=torch.int32, device=dev))
+            dataset_traj=ds_traj, dataset_vel=ds_vel, dataset_len=ds_len)
 
     # ------------------------------------------------------------------
     # step
@@ -488,11 +532,12 @@ class NavEnv:
         w = torch.where(alive, actions[:, 1], zero)
         v_y = torch.where(alive, actions[:, 2], zero)
 
-        # crowd step first, from the previous robot mirrors
-        _, _, beeps = crowd_common.sample_beeps(
+        # crowd step first, from the previous robot mirrors; the beep
+        # sources feed the ERVO evacuation term
+        sources, radii, beeps = crowd_common.sample_beeps(
             r.pose, v_y, float(cfg.beep_r), float(cfg.ped_ca_p), u=beep_u,
             generator=self.generator)
-        peds, crowd_aux = self._crowd_step(state)
+        peds, crowd_aux = self._crowd_step(state, sources, radii)
         pose, l0, l1, vel, arrive_new = batched_robot_cmd(
             r.pose, r.goal, r.vw_last0, r.vw_last1, r.vel_world,
             v, w, v_y, alive, st.limiter_v, st.limiter_w,
@@ -504,24 +549,76 @@ class NavEnv:
         return (state._replace(robots=robots, peds=peds, crowd_aux=crowd_aux,
                                step=state.step + 1), alive, beeps)
 
-    def _crowd_step(self, state: WorldState):
+    def _crowd_step(self, state: WorldState, sources, radii):
         """Peds and the robot mirrors' crowd velocities after one crowd
-        step (the JAX package's ``_crowd_step``, pedscene branch + gait).
-        The beep sources feed only the ERVO model, which is not ported."""
+        step (the JAX package's ``_crowd_step``): the crowd model, then the
+        gait.  ``sources``/``radii``: this step's beeps ([N,2], [N])."""
         cfg = self.cfg
-        ct = self.crowd
         m = cfg.ped_sim.total
         peds, aux = state.peds, state.crowd_aux
         if m == 0 or self.scene_type in ("none", ""):
             return peds, aux
-        _, new_idx = crowd_common.advance_traj_goals(
+        goals, new_idx = crowd_common.advance_traj_goals(
             peds.pos, peds.traj, peds.traj_len, peds.traj_idx)
-        # pedscene (check_supported refused every other model): peds +
-        # robot mirrors as one SFM population; the pedsim queue is
-        # [goal (r=1)] + trajectory (pedscene.h:39-47) and its fetch head
-        # travels in the sfm_lastdest slot
-        n = cfg.robot.total
-        rob = state.robots
+        if self.scene_type == "pedscene":
+            new_pos, new_vel, peds, aux = self._sfm_step(state)
+        elif self.scene_type == "dataset":
+            # verbatim replay: the k-th step after reset replays index k
+            # (step_ increments only at the end of _step,
+            # img_env.cpp:361-386, 518)
+            new_pos, new_vel, _ = crowd_common.dataset_replay(
+                state.step, peds.dataset_traj, peds.dataset_vel,
+                peds.dataset_len)
+        else:   # rvoscene / ervoscene
+            new_pos, new_vel = self._orca_step(
+                state, goals, *((sources, radii)
+                                if self.scene_type == "ervoscene"
+                                else (None, None)))
+        ct = self.crowd
+        yaw = torch.atan2(new_vel[:, 1], new_vel[:, 0])
+        move = f32.sqrt(((new_pos - peds.pos) ** 2).sum(-1))
+        gstate, gres, legs = gait_mod.update_gait(
+            peds.gait_state, peds.gait_residual, move, ct.rest_left,
+            ct.rest_right)
+        return peds._replace(
+            pos=new_pos, yaw=yaw, prev_pos=peds.pos, vel=new_vel,
+            traj_idx=new_idx, gait_state=gstate, gait_residual=gres,
+            leg_offset=legs), aux
+
+    def _orca_step(self, state: WorldState, goals, sources, radii):
+        """ORCA over the peds, with the robots as neighbours when
+        ``relation_ped_robo`` is 1 (their world velocities), against the
+        reset's split segments, or the raw rectangle edges when the reset
+        built none.  Every ped solves with the ORCA radius (0.5), not its
+        body radius."""
+        cfg = self.cfg
+        ct = self.crowd
+        m = cfg.ped_sim.total
+        peds, rob = state.peds, state.robots
+        seg = state.obstacles.segs
+        if seg is None:
+            aabb = state.obstacles.aabb
+            seg = orca_mod.segments_from_aabbs(aabb, torch.full(
+                (aabb.shape[0],), not cfg.ped_sim.ignore_obstacle,
+                dtype=torch.bool, device=self.device))
+        rel = int(cfg.relation_ped_robo) == 1
+        n_nb = cfg.robot.total if rel else 0
+        return orca_mod.orca_step(
+            peds.pos, peds.vel, orca_mod.pref_velocity(peds.pos, goals),
+            ct.orca_radius, ct.max_speed, ct.sfm_valid[:m],
+            rob.pose[:n_nb, :2], rob.vel_world[:n_nb],
+            ct.sfm_valid[m:m + n_nb], self.statics.orca_cfg, seg,
+            evac_sources=sources, evac_radii=radii)
+
+    def _sfm_step(self, state: WorldState):
+        """The pedscene model: peds + robot mirrors as one SFM population;
+        the pedsim queue is [goal (r=1)] + trajectory (pedscene.h:39-47)
+        and its fetch head travels in the sfm_lastdest slot.  Returns (pos,
+        vel, peds with the queue state, crowd aux)."""
+        cfg = self.cfg
+        ct = self.crowd
+        m, n = cfg.ped_sim.total, cfg.robot.total
+        peds, aux, rob = state.peds, state.crowd_aux, state.robots
         zi = torch.zeros((n,), dtype=torch.int32, device=self.device)
         wq = 1 + peds.traj.shape[1]
         wp = sfm_mod.SfmWaypointState(
@@ -543,20 +640,11 @@ class NavEnv:
             torch.cat([peds.vel, aux.robot_vel]),
             ct.sfm_vmax, ct.sfm_valid, wp, aabb[:, :2], aabb[:, 2:],
             seg_valid, float(cfg.control_hz))
-        new_pos, new_vel = all_pos[:m], all_vel[:m]
-        aux = CrowdAuxState(robot_vel=all_vel[m:])
         peds = peds._replace(sfm_wp_idx=new_wp.dest_idx[:m],
                              sfm_has_dest=new_wp.has_dest[:m],
                              sfm_lastdest=new_wp.head[:m])
-        yaw = torch.atan2(new_vel[:, 1], new_vel[:, 0])
-        move = f32.sqrt(((new_pos - peds.pos) ** 2).sum(-1))
-        gstate, gres, legs = gait_mod.update_gait(
-            peds.gait_state, peds.gait_residual, move, ct.rest_left,
-            ct.rest_right)
-        return peds._replace(
-            pos=new_pos, yaw=yaw, prev_pos=peds.pos, vel=new_vel,
-            traj_idx=new_idx, gait_state=gstate, gait_residual=gres,
-            leg_offset=legs), aux
+        return (all_pos[:m], all_vel[:m], peds,
+                CrowdAuxState(robot_vel=all_vel[m:]))
 
     # ------------------------------------------------------------------
     def _sensor_pass(self, packed, poses):
@@ -638,8 +726,6 @@ class NavEnv:
     # ------------------------------------------------------------------
     def reset(self, sample: Optional[ScenarioSample] = None, carry=None,
               dataset=None):
-        """The JAX reset's ``carry`` (state carried across episodes) and
-        ``dataset`` (a replayed crowd) are not ported and raise."""
         return self.reset_fn(sample, carry, dataset)
 
     def step(self, state, actions):

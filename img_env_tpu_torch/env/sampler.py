@@ -11,10 +11,17 @@ start for goals.  If any agent fails to place, the sample reports
 ``ok=False`` and ``sample_scenario_retry`` re-draws the whole scenario up
 to ``reset_redraws`` times.
 
-Ported pose types: ``fix``, ``rand_angle`` and ``range`` (4- or
-6-element boxes, including ``*_multi`` region lists).  The circle and
-view types raise ``NotImplementedError``.  ``SamplerSpec`` is a host-side
-numpy copy of the JAX builder.
+Pose types (reset_helper.py:189-300): ``fix`` and ``rand_angle`` assigned
+up front; ``range`` boxes (4 or 6 elements, ``*_multi`` region lists
+included); ``range_circle`` starts on a circle of radius
+U(circle_ranges) around the region centre with N(0, 0.5^2) noise, the
+goal diametrically opposite; ``..._circle_fix`` start angles spaced
+-pi + (2pi/A) i; ``circle_fix`` goals exactly opposite, unchecked;
+``range_view`` goals in the 8 m box around the start, outside its 5 m
+box.  ``draw`` takes every random number of a scenario from the
+generator and ``place`` turns them into poses, so tests can inject the
+JAX sampler's draws.  ``SamplerSpec`` is a host-side numpy copy of the JAX
+builder.
 """
 
 from __future__ import annotations
@@ -176,11 +183,6 @@ class SamplerSpec(NamedTuple):
         )
 
 
-_PORTED = (FIX, RAND_ANGLE, RANGE4, RANGE6)
-_NAMES = {RANGE_CIRCLE: "range_circle", RANGE_CIRCLE_FIX: "range_circle_fix",
-          RANGE_VIEW: "range_view", CIRCLE_FIX: "circle_fix"}
-
-
 class ScenarioSample(NamedTuple):
     obs_pose: torch.Tensor      # [O,3]
     obs_radius: torch.Tensor    # [O] clearance radius (circle r or rect diag)
@@ -191,22 +193,239 @@ class ScenarioSample(NamedTuple):
     ok: torch.Tensor            # [] bool all agents placed cleanly
 
 
-def _check_supported(spec: SamplerSpec) -> None:
-    for code in np.concatenate([spec.begin_type, spec.target_type]):
-        if int(code) not in _PORTED:
-            raise NotImplementedError(
-                f"pose type {_NAMES.get(int(code), code)!r} is not ported "
-                "(fix, rand_angle and range are)")
+class SamplerDraws(NamedTuple):
+    """Every random number one scenario reads (T = ``spec.trials``)."""
+
+    obs_u: torch.Tensor          # [O,4] uniform: x, y, yaw, circle radius
+    pre_u: torch.Tensor          # [A] uniform: rand_angle yaws
+    begin_u: torch.Tensor        # [A,T,3] uniform per start proposal
+    begin_region: torch.Tensor   # [A,T] int64 region of each proposal
+    target_u: torch.Tensor       # [A,T,3]
+    target_region: torch.Tensor  # [A,T]
+    circle_range: torch.Tensor   # [] radius of the circle pose types
+    begin_gauss: torch.Tensor    # [A,T,2] N(0, 0.5^2) circle start noise
+    target_gauss: torch.Tensor   # [A,T,2] N(0, 0.5^2) circle goal noise
+    go_back_u: torch.Tensor      # [M] uniform (go_back 'random')
 
 
-def _box_candidates(u, ridx, regions):
-    """Uniform box poses: u [A,T,3], ridx [A,T] region pick, regions
-    [A,R,6] -> [A,T,3]."""
-    p = torch.gather(regions, 1, ridx[..., None].expand(-1, -1, 6))
-    x = p[..., 0] + u[..., 0] * (p[..., 1] - p[..., 0])
-    y = p[..., 2] + u[..., 1] * (p[..., 3] - p[..., 2])
-    th = p[..., 4] + u[..., 2] * (p[..., 5] - p[..., 4])
-    return torch.stack([x, y, th], -1)
+_CIRCLES = (RANGE_CIRCLE, RANGE_CIRCLE_FIX, CIRCLE_FIX)
+
+
+def draw(spec: SamplerSpec, generator: torch.Generator,
+         device="cpu") -> SamplerDraws:
+    """The draws of one scenario from ``generator``, float32.  The circle
+    radius and noises are drawn only when a circle pose type is
+    configured (zeros otherwise), the go-back draw only for 'random'."""
+    dt = torch.float32
+    o, a, t, m = (spec.obs_type.shape[0], spec.begin_type.shape[0],
+                  spec.trials, spec.n_peds)
+    rand = lambda *shape: torch.rand(shape, generator=generator,
+                                     device=device, dtype=dt)
+
+    def regions(nreg):
+        r = torch.floor(rand(a, t) * torch.as_tensor(
+            nreg, dtype=dt, device=device)[:, None]).to(torch.int64)
+        return torch.minimum(r, torch.as_tensor(nreg - 1,
+                                                device=device)[:, None])
+
+    obs_u = rand(o, 4) if o else torch.zeros((0, 4), dtype=dt, device=device)
+    pre_u = rand(a)
+    begin_u, begin_region = rand(a, t, 3), regions(spec.begin_nreg)
+    target_u, target_region = rand(a, t, 3), regions(spec.target_nreg)
+    codes = np.concatenate([spec.begin_type, spec.target_type])
+    if np.isin(codes, _CIRCLES).any():
+        lo, hi = spec.circle_ranges
+        circle_range = lo + rand() * (hi - lo)
+        gauss = lambda: torch.randn((a, t, 2), generator=generator,
+                                    device=device, dtype=dt) * 0.5
+        begin_gauss, target_gauss = gauss(), gauss()
+    else:
+        circle_range = torch.zeros((), dtype=dt, device=device)
+        begin_gauss = target_gauss = torch.zeros((a, t, 2), dtype=dt,
+                                                 device=device)
+    go_back_u = (rand(m) if spec.go_back_mode == 2
+                 else torch.zeros((m,), dtype=dt, device=device))
+    return SamplerDraws(obs_u, pre_u, begin_u, begin_region, target_u,
+                        target_region, circle_range, begin_gauss,
+                        target_gauss, go_back_u)
+
+
+def _circle(radius, angle, p, yaw_off, gauss=None):
+    """Poses on the circle of ``radius`` around the region's (x, y),
+    facing ``angle + yaw_off``."""
+    x = radius * torch.cos(angle) + p[..., 0]
+    y = radius * torch.sin(angle) + p[..., 1]
+    if gauss is not None:
+        x, y = x + gauss[..., 0], y + gauss[..., 1]
+    return torch.stack([x, y, angle + yaw_off], -1)
+
+
+def _view(init, u):
+    """range_view: uniform over the 8 m box around ``init`` [..., 3]."""
+    b = _VIEW_BOX[1]
+    return torch.stack([init[..., 0] - b + u[..., 0] * (2 * b),
+                        init[..., 1] - b + u[..., 1] * (2 * b),
+                        -3.14 + u[..., 2] * 6.28], -1)
+
+
+def _box(u, p):
+    """range: uniform in the region's box (x, y, yaw)."""
+    return torch.stack([p[..., 0] + u[..., 0] * (p[..., 1] - p[..., 0]),
+                        p[..., 2] + u[..., 1] * (p[..., 3] - p[..., 2]),
+                        p[..., 4] + u[..., 2] * (p[..., 5] - p[..., 4])], -1)
+
+
+def _begin_candidates(code, u, gauss, p, circle_range, n_agents: int):
+    """Start proposals [A,T,3] of every agent (reset_helper.py:189-300).
+    A start is drawn only for an agent not yet placed, whose pose is
+    still 0, so the pose-relative types read a zero pose here, as the JAX
+    sampler's do."""
+    dev = u.device
+    out = _box(u, p)
+    i = torch.arange(n_agents, device=dev, dtype=u.dtype)[:, None]
+    zero = torch.zeros_like(u[..., 0])
+    kinds = {
+        RANGE_CIRCLE: lambda: _circle(circle_range, -3.14 + u[..., 0] * 6.28,
+                                      p, 3.14, gauss),
+        RANGE_CIRCLE_FIX: lambda: _circle(
+            circle_range, (-3.14 + (6.28 / n_agents) * i).expand_as(zero),
+            p, 3.14, gauss),
+        RANGE_VIEW: lambda: _view(torch.zeros_like(u), u),
+        CIRCLE_FIX: lambda: _circle(circle_range, zero, p, -3.14),
+    }
+    for k, make in kinds.items():
+        if (code == k).any():
+            sel = torch.as_tensor(code == k, device=dev)[:, None, None]
+            out = torch.where(sel, make(), out)
+    return out
+
+
+def _first_valid(cands, valid):
+    """(first valid candidate [3], any valid [])."""
+    pick = valid.to(torch.uint8).argmax().reshape(1)
+    return cands.index_select(0, pick)[0], valid.any()
+
+
+def place(spec: SamplerSpec, d: SamplerDraws) -> ScenarioSample:
+    """The scenario that the draws ``d`` give (the JAX package's
+    ``sample_scenario`` after its draws)."""
+    dev = d.pre_u.device
+    dtype = d.pre_u.dtype
+    o = spec.obs_type.shape[0]
+    a = spec.begin_type.shape[0]
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    # ---- obstacles (no clearance checks, reset_helper.py:122-165) ----
+    if o > 0:
+        u = d.obs_u
+        sr = f(spec.obs_size_range)
+        circ_r = sr[:, 0] + u[:, 3] * (sr[:, 1] - sr[:, 0])
+        rect_r = torch.sqrt(sr[:, 0] ** 2 + sr[:, 2] ** 2)
+        is_circ = torch.as_tensor(spec.obs_shape_circle, device=dev)
+        p = f(spec.obs_params)
+        drawn = torch.stack([p[:, 0] + u[:, 0] * (p[:, 1] - p[:, 0]),
+                             p[:, 2] + u[:, 1] * (p[:, 3] - p[:, 2]),
+                             p[:, 4] + u[:, 2] * (p[:, 5] - p[:, 4])], -1)
+        is_fix = torch.as_tensor(spec.obs_type == FIX, device=dev)
+        obs_pose = torch.where(is_fix[:, None], p[:, :3], drawn)
+        obs_radius = torch.where(is_circ, circ_r, rect_r)
+        obs_circle_r = torch.where(is_circ, circ_r, torch.zeros_like(circ_r))
+    else:
+        obs_pose = torch.zeros((0, 3), dtype=dtype, device=dev)
+        obs_radius = torch.zeros((0,), dtype=dtype, device=dev)
+        obs_circle_r = torch.zeros((0,), dtype=dtype, device=dev)
+
+    # ---- fixed / rand_angle poses, assigned up front ----
+    bt, tt = spec.begin_type, spec.target_type
+    bp, tp = f(spec.begin_params), f(spec.target_params)
+
+    def prefill(code, params):
+        p0 = params[:, 0]
+        ra = torch.stack([p0[:, 0], p0[:, 1],
+                          p0[:, 2] + d.pre_u * (p0[:, 3] - p0[:, 2])], -1)
+        poses = torch.zeros((a, 3), dtype=dtype, device=dev)
+        poses = torch.where(torch.as_tensor(code == FIX, device=dev)[:, None],
+                            p0[:, :3], poses)
+        poses = torch.where(
+            torch.as_tensor(code == RAND_ANGLE, device=dev)[:, None],
+            ra, poses)
+        return poses, (code == FIX) | (code == RAND_ANGLE)
+
+    init_poses, need_b = prefill(bt, bp)
+    target_poses, need_t = prefill(tt, tp)
+    need_b, need_t = ~need_b, ~need_t
+
+    # ---- proposals, then sequential placement ----
+    pick = lambda params, r: torch.gather(params, 1,
+                                          r[..., None].expand(-1, -1, 6))
+    p_b, p_t = pick(bp, d.begin_region), pick(tp, d.target_region)
+    cr = d.circle_range
+    cand_b = _begin_candidates(bt, d.begin_u, d.begin_gauss, p_b, cr, a)
+    cand_t = _box(d.target_u, p_t)
+    init_filled = torch.as_tensor(~need_b, device=dev)
+    target_filled = torch.as_tensor(~need_t, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    tmd2 = spec.target_min_dist ** 2
+    for i in range(a):
+        mod = float(spec.module_size[i])
+        if need_b[i]:
+            valid = (_clear_of_agents(cand_b[i, :, :2], init_poses,
+                                      init_filled)
+                     & _clear_of_obstacles(cand_b[i, :, :2], mod, obs_pose,
+                                           obs_radius))
+            pose, got = _first_valid(cand_b[i], valid)
+            init_poses[i] = pose
+            ok = ok & got
+        init_filled[i] = True
+        if need_t[i]:
+            # goals of the pose-relative types derive from the start
+            init, code = init_poses[i], int(tt[i])
+            tc = cand_t[i]
+            if code in (RANGE_CIRCLE, RANGE_CIRCLE_FIX):
+                tc = _circle(cr, init[2].expand(tc.shape[0]), p_t[i], -3.14,
+                             d.target_gauss[i])
+            elif code == CIRCLE_FIX:
+                tc = _circle(cr, init[2].expand(tc.shape[0]), p_t[i], -3.14)
+            elif code == RANGE_VIEW:
+                tc = _view(init, d.target_u[i])
+            if code == CIRCLE_FIX:
+                # the deterministic opposite skips every check
+                # (reset_helper.py:260-265)
+                tvalid = torch.ones(tc.shape[0], dtype=torch.bool, device=dev)
+            else:
+                tvalid = ((((tc[:, :2] - init[:2]) ** 2).sum(-1) > tmd2)
+                          & _clear_of_agents(tc[:, :2], target_poses,
+                                             target_filled)
+                          & _clear_of_obstacles(tc[:, :2], mod, obs_pose,
+                                                obs_radius))
+            if code == RANGE_VIEW:
+                # outside the +-2.5 m box around the start, inside the
+                # drawn region
+                pv = p_t[i]
+                bx, by = _VIEW_BOX[0], _VIEW_BOX[2]
+                inner = ((tc[:, 0] >= init[0] - bx)
+                         & (tc[:, 0] <= init[0] + bx)
+                         & (tc[:, 1] >= init[1] - by)
+                         & (tc[:, 1] <= init[1] + by))
+                tvalid = tvalid & ~inner & (
+                    (tc[:, 0] >= pv[:, 0]) & (tc[:, 0] <= pv[:, 1])
+                    & (tc[:, 1] >= pv[:, 2]) & (tc[:, 1] <= pv[:, 3]))
+            pose, got = _first_valid(tc, tvalid)
+            target_poses[i] = pose
+            ok = ok & got
+        target_filled[i] = True
+
+    m = spec.n_peds
+    if spec.go_back_mode == 1:
+        go_back = torch.ones((m,), dtype=torch.bool, device=dev)
+    elif spec.go_back_mode == 0:
+        go_back = torch.zeros((m,), dtype=torch.bool, device=dev)
+    else:
+        go_back = d.go_back_u > 0.5
+    return ScenarioSample(
+        obs_pose=obs_pose, obs_radius=obs_radius, obs_circle_r=obs_circle_r,
+        init_poses=init_poses, target_poses=target_poses, go_back=go_back,
+        ok=ok)
 
 
 def _clear_of_agents(cand_xy, poses, filled):
@@ -221,113 +440,9 @@ def _clear_of_obstacles(cand_xy, module: float, obs_pose, obs_radius):
     return ~((d <= thresh) & (obs_radius[None, :] != 0.0)).any(dim=1)
 
 
-def _first_valid(cands, valid):
-    """(first valid candidate [3], any valid [])."""
-    pick = valid.to(torch.uint8).argmax().reshape(1)
-    return cands.index_select(0, pick)[0], valid.any()
-
-
 def sample_scenario(spec: SamplerSpec, generator: torch.Generator,
                     device="cpu") -> ScenarioSample:
-    _check_supported(spec)
-    dtype = torch.float32
-    o = spec.obs_type.shape[0]
-    a = spec.begin_type.shape[0]
-    t = spec.trials
-    f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-    rand = lambda *shape: torch.rand(shape, generator=generator,
-                                     device=device, dtype=dtype)
-
-    # ---- obstacles (no clearance checks, reset_helper.py:122-165) ----
-    if o > 0:
-        u = rand(o, 4)
-        sr = f(spec.obs_size_range)
-        circ_r = sr[:, 0] + u[:, 3] * (sr[:, 1] - sr[:, 0])
-        rect_r = torch.sqrt(sr[:, 0] ** 2 + sr[:, 2] ** 2)
-        is_circ = torch.as_tensor(spec.obs_shape_circle, device=device)
-        p = f(spec.obs_params)
-        drawn = torch.stack([p[:, 0] + u[:, 0] * (p[:, 1] - p[:, 0]),
-                             p[:, 2] + u[:, 1] * (p[:, 3] - p[:, 2]),
-                             p[:, 4] + u[:, 2] * (p[:, 5] - p[:, 4])], -1)
-        is_fix = torch.as_tensor(spec.obs_type == FIX, device=device)
-        obs_pose = torch.where(is_fix[:, None], p[:, :3], drawn)
-        obs_radius = torch.where(is_circ, circ_r, rect_r)
-        obs_circle_r = torch.where(is_circ, circ_r, torch.zeros_like(circ_r))
-    else:
-        obs_pose = torch.zeros((0, 3), dtype=dtype, device=device)
-        obs_radius = torch.zeros((0,), dtype=dtype, device=device)
-        obs_circle_r = torch.zeros((0,), dtype=dtype, device=device)
-
-    # ---- fixed / rand_angle poses, assigned up front ----
-    bt, tt = spec.begin_type, spec.target_type
-    bp, tp = f(spec.begin_params), f(spec.target_params)
-    pre_u = rand(a)
-
-    def prefill(code, params):
-        p0 = params[:, 0]
-        fixed = p0[:, :3]
-        ra = torch.stack([p0[:, 0], p0[:, 1],
-                          p0[:, 2] + pre_u * (p0[:, 3] - p0[:, 2])], -1)
-        poses = torch.zeros((a, 3), dtype=dtype, device=device)
-        poses = torch.where(torch.as_tensor(code == FIX, device=device)[:, None],
-                            fixed, poses)
-        poses = torch.where(
-            torch.as_tensor(code == RAND_ANGLE, device=device)[:, None],
-            ra, poses)
-        return poses, (code == FIX) | (code == RAND_ANGLE)
-
-    init_poses, need_b = prefill(bt, bp)
-    target_poses, need_t = prefill(tt, tp)
-    need_b, need_t = ~need_b, ~need_t
-
-    # ---- candidates for every agent, then sequential placement ----
-    def candidates(params, nreg):
-        u = rand(a, t, 3)
-        r = torch.floor(rand(a, t) * torch.as_tensor(
-            nreg, dtype=dtype, device=device)[:, None]).to(torch.int64)
-        r = torch.minimum(r, torch.as_tensor(nreg - 1, device=device)[:, None])
-        return _box_candidates(u, r, params)
-
-    cand_b = candidates(bp, spec.begin_nreg)
-    cand_t = candidates(tp, spec.target_nreg)
-    init_filled = torch.as_tensor(~need_b, device=device)
-    target_filled = torch.as_tensor(~need_t, device=device)
-    ok = torch.ones((), dtype=torch.bool, device=device)
-    tmd2 = spec.target_min_dist ** 2
-    for i in range(a):
-        mod = float(spec.module_size[i])
-        if need_b[i]:
-            valid = (_clear_of_agents(cand_b[i, :, :2], init_poses,
-                                      init_filled)
-                     & _clear_of_obstacles(cand_b[i, :, :2], mod, obs_pose,
-                                           obs_radius))
-            pose, got = _first_valid(cand_b[i], valid)
-            init_poses[i] = pose
-            ok = ok & got
-        init_filled[i] = True
-        if need_t[i]:
-            tc = cand_t[i]
-            tvalid = ((((tc[:, :2] - init_poses[i, :2]) ** 2).sum(-1) > tmd2)
-                      & _clear_of_agents(tc[:, :2], target_poses,
-                                         target_filled)
-                      & _clear_of_obstacles(tc[:, :2], mod, obs_pose,
-                                            obs_radius))
-            pose, got = _first_valid(tc, tvalid)
-            target_poses[i] = pose
-            ok = ok & got
-        target_filled[i] = True
-
-    m = spec.n_peds
-    if spec.go_back_mode == 1:
-        go_back = torch.ones((m,), dtype=torch.bool, device=device)
-    elif spec.go_back_mode == 0:
-        go_back = torch.zeros((m,), dtype=torch.bool, device=device)
-    else:
-        go_back = rand(m) > 0.5
-    return ScenarioSample(
-        obs_pose=obs_pose, obs_radius=obs_radius, obs_circle_r=obs_circle_r,
-        init_poses=init_poses, target_poses=target_poses, go_back=go_back,
-        ok=ok)
+    return place(spec, draw(spec, generator, device))
 
 
 def sample_scenario_retry(spec: SamplerSpec, generator: torch.Generator,

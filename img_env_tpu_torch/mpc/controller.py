@@ -4,7 +4,7 @@
 ``act_fn`` builds the per-episode ``WorldCost`` from the live state (the
 episode EDT that reset computed over the static map plus sampled
 obstacles), predicts the pedestrians over the horizon once per solve
-(mpc/prediction.py, 'cv' or 'sfm') and runs one K-sample MPPI solve per
+(mpc/prediction.py: 'cv', 'orca' or 'sfm') and runs one K-sample MPPI solve per
 robot against the peds and the ``avoid_k`` nearest other robots.
 """
 
@@ -115,7 +115,8 @@ class MpcController:
         ped_traj = predict_peds(
             self.ped_prediction, state.peds.pos.to(pose.dtype),
             state.peds.vel.to(pose.dtype),
-            env.crowd.max_speed.to(pose.dtype), self.cfg.horizon, dt)
+            env.crowd.max_speed.to(pose.dtype), self.cfg.horizon, dt,
+            orca_cfg=st.orca_cfg, segments=state.obstacles.segs)
         ped_r = env.crowd.ped_r.to(pose.dtype)
         # other robots join the avoidance set as constant-velocity tracks
         ts = (torch.arange(1, self.cfg.horizon + 1, dtype=torch.float32,

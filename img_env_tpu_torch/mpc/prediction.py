@@ -1,24 +1,27 @@
 """Pedestrian trajectory prediction for the MPC horizon (torch port of
-``img_env_tpu.mpc.prediction``, the constant-velocity and SFM heads).
+``img_env_tpu.mpc.prediction``).
 
 The controller predicts each pedestrian's next H positions once per solve
 and shares the prediction across all K candidate rollouts:
 
-  * 'cv'  — constant velocity (cheapest, default);
-  * 'sfm' — roll the batched Social Force Model forward H steps toward a
-            far waypoint on the ped's heading (crowd/sfm.py).
+  * 'cv'   — constant velocity (cheapest, default);
+  * 'orca' — roll the batched ORCA solver forward H steps, the preferred
+             velocity toward the ped's extrapolated goal (crowd/orca.py),
+             against the episode's split segments when it has them;
+  * 'sfm'  — roll the batched Social Force Model forward H steps toward a
+             far waypoint on the ped's heading (crowd/sfm.py).
 
 The robots' influence is left out (robots are the decision variables).
-The ORCA head is not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
+from img_env_tpu_torch.crowd import orca as orca_mod
 from img_env_tpu_torch.crowd import sfm as sfm_mod
 
-HEADS = ("cv", "sfm")
+HEADS = ("cv", "orca", "sfm")
 
 
 def predict_cv(pos, vel, horizon: int, dt: float):
@@ -26,6 +29,30 @@ def predict_cv(pos, vel, horizon: int, dt: float):
     t = (torch.arange(horizon, dtype=pos.dtype, device=pos.device)
          + 1.0)[:, None, None] * dt
     return pos[None] + vel[None] * t
+
+
+def predict_orca(pos, vel, vmax, horizon: int, orca_cfg, segments=None,
+                 goal_lookahead: float = 4.0):
+    """[H,M,2] by iterating the batched ORCA step (goals extrapolated
+    ``goal_lookahead`` s along the velocity; steps of
+    ``orca_cfg.time_step``).  ``segments``: the episode's split segments,
+    or None for no obstacles."""
+    m = pos.shape[0]
+    dev = pos.device
+    goals = pos + vel * goal_lookahead
+    radius = pos.new_full((m,), orca_cfg.radius)
+    valid = torch.ones((m,), dtype=torch.bool, device=dev)
+    no_robots = pos.new_zeros((0, 2))
+    seg = segments if segments is not None else orca_mod.segments_from_aabbs(
+        pos.new_zeros((0, 4)), torch.zeros((0,), dtype=torch.bool,
+                                           device=dev))
+    traj = []
+    for _ in range(horizon):
+        pos, vel = orca_mod.orca_step(
+            pos, vel, orca_mod.pref_velocity(pos, goals), radius, vmax, valid,
+            no_robots, no_robots, valid[:0], orca_cfg, seg)
+        traj.append(pos)
+    return torch.stack(traj)
 
 
 def predict_sfm(pos, vel, vmax, horizon: int, dt: float,
@@ -52,13 +79,17 @@ def predict_sfm(pos, vel, vmax, horizon: int, dt: float,
     return torch.stack(traj)
 
 
-def predict_peds(mode: str, pos, vel, vmax, horizon: int, dt: float):
-    """Dispatch on the head. Returns [H,M,2] predicted positions."""
+def predict_peds(mode: str, pos, vel, vmax, horizon: int, dt: float,
+                 orca_cfg=None, segments=None):
+    """Dispatch on the head. Returns [H,M,2] predicted positions.  The
+    'orca' head needs ``orca_cfg`` (the env's statics)."""
     if mode not in HEADS:
         raise NotImplementedError(
             f"ped prediction head {mode!r} is not ported (only {HEADS})")
     if pos.shape[0] == 0:
         return pos.new_zeros((horizon, 0, 2))
+    if mode == "orca":
+        return predict_orca(pos, vel, vmax, horizon, orca_cfg, segments)
     if mode == "sfm":
         return predict_sfm(pos, vel, vmax, horizon, dt)
     return predict_cv(pos, vel, horizon, dt)

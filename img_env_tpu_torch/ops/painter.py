@@ -347,10 +347,11 @@ class PaintTStatics(NamedTuple):
 
 class PaintRows(NamedTuple):
     """K3's slot rows: each row is up to G8 output slots that share one
-    beam window [rb, rb + w) and a [w, G8] int16 table of visit step+1
-    (0 = not visited).  Every slot of the painted space is in exactly one
-    row: PaintT groups (their pst-wide slots masked out), packs of G8 wide
-    slots over all beams, and packs of slots no beam visits (w = 0)."""
+    beam window [rb, rb + w), which ends at or before the last beam, and a
+    [w, G8] int16 table of visit step+1 (0 = not visited).  Every slot of
+    the painted space is in exactly one row: PaintT groups (their
+    pst-wide slots masked out), packs of G8 wide slots over all beams, and
+    packs of slots no beam visits (w = 0)."""
 
     slots: np.ndarray       # [nr, G8] int32 slot id (-1 = none)
     rb: np.ndarray          # [nr] int32 window start beam
@@ -372,9 +373,17 @@ class PaintRows(NamedTuple):
                 ids = np.where(wide[ids], -1, ids)
                 covered[ids[ids >= 0]] = True
                 slots.append(ids)
-                rbs.append(int(cl.rbase[i]))
-                ws.append(cl.w)
-                tabs.append(cl.tb[i].T)                     # [w, G8]
+                # the TPU windows may run into the lane padding past the
+                # last beam, which visits nothing; K3 reads the thresholds
+                # of every window beam, so the window stops at the last one
+                rb, tab = int(cl.rbase[i]), cl.tb[i].T      # [w, G8]
+                w = min(cl.w, n_beams - rb)
+                if tab[w:].any():
+                    raise ValueError("a painter window visits a beam past "
+                                     "the last")
+                rbs.append(rb)
+                ws.append(w)
+                tabs.append(tab[:w])
 
         def packs(ids, rows):
             for a in range(0, len(ids), G8):

@@ -213,4 +213,4 @@ def test_predict_sfm_and_cv(x64):
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=tol)
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), atol=tol)
     with pytest.raises(NotImplementedError):
-        prediction.predict_peds("orca", T(pos), T(vel), T(vmax), h, 0.4)
+        prediction.predict_peds("lstm", T(pos), T(vel), T(vmax), h, 0.4)

@@ -21,6 +21,7 @@ from img_env_tpu_torch.core.convert import (
     world_state_from_numpy,
     world_state_to_numpy,
 )
+from img_env_tpu_torch.crowd.obstacle_split import split_segments
 from img_env_tpu_torch.env.nav_env import NavEnv
 from img_env_tpu_torch.env.sampler import ScenarioSample
 
@@ -171,8 +172,6 @@ def test_state_roundtrip(envs):
 
 
 @pytest.mark.parametrize("override", [
-    {"ped_sim": {"total": 2, "type": "rvoscene"}},
-    {"ped_sim": {"total": 2, "type": "ervoscene"}},
     {"sensor_mode": "fast"},
     {"sensor_mode": "reference"},
     {"use_laser": False},
@@ -191,14 +190,6 @@ def test_unknown_crowd_model_raises():
     d.update(ped_sim={"total": 2, "type": "pedscen"})
     with pytest.raises(ValueError, match="pedscen"):
         NavEnv(EnvConfig.from_dict(d), "cpu")
-
-
-def test_unported_reset_arguments_raise(envs):
-    _, env_t = envs
-    state, _ = env_t.reset()
-    for kw in ({"carry": state}, {"dataset": (None, None, None)}):
-        with pytest.raises(NotImplementedError):
-            env_t.reset(**kw)
 
 
 # ---------------------------------------------------------------------
@@ -344,3 +335,210 @@ def test_block_painter_env_matches_jax(peds):
             state_j, *_ = env_j.step(state_j, acts)
         _, obs_f = env_t._observe(world_state_from_numpy(_np(adv_j)))
         _assert_ped_obs_exact(obs_f, obs_j)
+
+
+# ---------------------------------------------------------------------
+# the ORCA crowds: rvoscene and ervoscene (beeps), reset with carry=
+# ---------------------------------------------------------------------
+
+
+def orca_cfg_dict(scene):
+    """Three robots among four leg peds and three obstacles (two
+    rectangles) in a 4 m square, so that peds, robots and segments meet
+    within ORCA's 0.5 m neighbour distance."""
+    d = ped_cfg_dict(n_rob=3, n_ped=4, n_obs=3)
+    box = [[3.0, 7.0, 3.0, 7.0]]
+    d["robot"].update(begin_poses=box, target_poses=box)
+    d["object"].update(shape=["rectangle", "circle", "rectangle"],
+                       size_range=[[-0.3, 0.3, -0.2, 0.2], [0.2, 0.3],
+                                   [-0.15, 0.15, -0.4, 0.4]],
+                       poses=[[3.5, 6.5, 3.5, 6.5]])
+    d["ped_sim"].update(type=scene, shape=["leg"], size=[[0, 0.1, 0.1]],
+                        begin_poses=box, target_poses=box)
+    d.update(beep_r=1.5, ped_ca_p=0.8, target_min_dist=1.0)
+    return d
+
+
+ORCA_TOL = dict(pos=1e-3, vel=2e-3)   # f32 LP conditioning, test_torch_orca
+
+
+@pytest.fixture(scope="module", params=["rvoscene", "ervoscene"])
+def orca_envs(request):
+    d = orca_cfg_dict(request.param)
+    with jax.enable_x64(False):
+        env_j = JaxNavEnv(JaxEnvConfig.from_dict(d))
+    return env_j, NavEnv(EnvConfig.from_dict(d), "cpu")
+
+
+def _beep_draw(state_j, n):
+    """The JAX step's beep uniforms (nav_env.py:646, common.py:54)."""
+    with jax.enable_x64(False):
+        key_beep, _ = jax.random.split(state_j.rng)
+        return torch.as_tensor(np.array(jax.random.uniform(key_beep, (n,))))
+
+
+@pytest.mark.parametrize("seed", [21, 22])
+def test_orca_reset_builds_split_segments(orca_envs, seed):
+    """The reset's split segments: convexity, validity and order equal the
+    JAX reset's; points within one float32 ulp (the obstacle corners of a
+    rotated rectangle can differ by one: XLA contracts the rotation's
+    multiply-adds), and equal to the port's split of the JAX corners."""
+    env_j, env_t = orca_envs
+    key = jax.random.PRNGKey(seed)
+    with jax.enable_x64(False):
+        state_j, obs_j = env_j.reset(key)
+    state_t, obs_t = env_t.reset(_jax_sample(env_j, key))
+    segs_j, segs_t = _np(state_j.obstacles.segs), state_t.obstacles.segs
+    assert segs_t is not None
+    same_corners, _ = split_segments(
+        torch.as_tensor(np.array(state_j.obstacles.aabb)),
+        torch.ones(3, dtype=torch.bool))
+    for f in segs_j._fields:
+        got, want = getattr(segs_t, f).numpy(), getattr(segs_j, f)
+        if want.dtype == bool:
+            np.testing.assert_array_equal(got, want, err_msg=f)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6,
+                                       err_msg=f)
+        np.testing.assert_array_equal(getattr(same_corners, f).numpy(),
+                                      want, err_msg=f)
+    assert int(segs_t.valid.sum()) >= 12
+    _assert_ped_obs_exact(obs_t, obs_j)
+
+
+def test_orca_teacher_forced_steps(orca_envs):
+    """Six steps, each from the JAX state with the JAX step's beep draw
+    injected; robots 0 and 2 beep (v_y > 0), and peds stand within the
+    beep radius of a heeded beep (the ERVO evacuation term).  The crowd
+    agrees within ORCA_TOL, beeps, waypoint indices and gait phases
+    exactly, and every observation surface exactly given the same (JAX)
+    state."""
+    env_j, env_t = orca_envs
+    rng = np.random.default_rng(22)
+    with jax.enable_x64(False):
+        state_j, _ = env_j.reset(jax.random.PRNGKey(23))
+    n = env_t.cfg.robot.total
+    moved = beeped = 0.0
+    for step in range(6):
+        acts = np.stack([rng.uniform(0.1, 0.6, n), rng.uniform(-0.9, 0.9, n),
+                         np.array([1.0, 0.0, 1.0])], -1).astype(np.float32)
+        state_in = world_state_from_numpy(_np(state_j))
+        u = _beep_draw(state_j, n)
+        adv_j, obs_j = _jax_advance_observe(env_j, state_j, acts)
+        with jax.enable_x64(False):
+            state_j, _, rew_j, done_j, info_j = env_j.step(state_j, acts)
+        st_t, obs_t, rew_t, done_t, info_t = env_t.step_fn(
+            state_in, torch.as_tensor(acts), beep_u=u)
+        pj, pt = _np(state_j.peds), st_t.peds
+        np.testing.assert_allclose(pt.pos.numpy(), pj.pos, rtol=0,
+                                   atol=ORCA_TOL["pos"])
+        np.testing.assert_allclose(pt.vel.numpy(), pj.vel, rtol=0,
+                                   atol=ORCA_TOL["vel"])
+        for f in ("traj_idx", "gait_state"):
+            np.testing.assert_array_equal(getattr(pt, f).numpy(),
+                                          getattr(pj, f), err_msg=f)
+        np.testing.assert_array_equal(info_t["beeps"].numpy(),
+                                      np.asarray(info_j["beeps"]))
+        np.testing.assert_array_equal(
+            st_t.crowd_aux.robot_vel.numpy(),
+            np.asarray(state_j.crowd_aux.robot_vel))
+        _, obs_f = env_t._observe(world_state_from_numpy(_np(adv_j)))
+        _assert_ped_obs_exact(obs_f, obs_j)
+        np.testing.assert_array_equal(rew_t.numpy(), np.asarray(rew_j))
+        np.testing.assert_array_equal(done_t.numpy(), np.asarray(done_j))
+        moved += float(np.abs(pj.pos - state_in.peds.pos.numpy()).sum())
+        # peds within beep_r of a robot whose beep the crowd heeds
+        gap = np.linalg.norm(state_in.peds.pos.numpy()[:, None]
+                             - state_in.robots.pose.numpy()[None, :, :2],
+                             axis=-1)
+        beeped += float(((gap <= 1.5) & info_t["beeps"].numpy()[None]).sum())
+    assert moved > 0 and beeped > 0
+
+
+def test_orca_fallback_segments_without_split(orca_envs):
+    """A state whose reset built no split segments (segs None) solves
+    against the raw rectangle edges (nav_env.py:704-712), as the JAX env
+    does."""
+    env_j, env_t = orca_envs
+    with jax.enable_x64(False):
+        state_j, _ = env_j.reset(jax.random.PRNGKey(24))
+        state_j = state_j._replace(
+            obstacles=state_j.obstacles._replace(segs=None))
+        adv_j, _, _ = jax.jit(env_j.advance_fn)(
+            state_j, jax.numpy.zeros((3, 3)))
+    state_t = world_state_from_numpy(_np(state_j))
+    assert state_t.obstacles.segs is None
+    adv_t, _, _ = env_t.advance_fn(state_t, torch.zeros((3, 3)),
+                                   beep_u=_beep_draw(state_j, 3))
+    np.testing.assert_allclose(adv_t.peds.pos.numpy(),
+                               np.asarray(adv_j.peds.pos), rtol=0,
+                               atol=ORCA_TOL["pos"])
+
+
+def test_reset_with_carry_matches_jax(orca_envs):
+    """reset(carry=) keeps the previous episode's vw_last1, ped velocities,
+    gait phase and residual and the robots' crowd velocities."""
+    env_j, env_t = orca_envs
+    with jax.enable_x64(False):
+        prev, _ = env_j.reset(jax.random.PRNGKey(25))
+        for _ in range(3):
+            prev, *_ = env_j.step(prev, np.tile(
+                np.asarray([[0.4, 0.3, 1.0]], np.float32), (3, 1)))
+        prev = prev._replace(crowd_aux=prev.crowd_aux._replace(
+            robot_vel=prev.crowd_aux.robot_vel + 0.25))
+        key = jax.random.PRNGKey(26)
+        state_j, obs_j = env_j.reset(key, carry=prev)
+    assert float(np.abs(np.asarray(prev.peds.vel)).max()) > 0
+    state_t, obs_t = env_t.reset(_jax_sample(env_j, key),
+                                 carry=world_state_from_numpy(_np(prev)))
+    want = _np(state_j)
+    for f in state_t.peds._fields:
+        np.testing.assert_array_equal(getattr(state_t.peds, f).numpy(),
+                                      getattr(want.peds, f), err_msg=f)
+    for f in ("vw_last0", "vw_last1", "pose"):
+        np.testing.assert_array_equal(getattr(state_t.robots, f).numpy(),
+                                      getattr(want.robots, f), err_msg=f)
+    np.testing.assert_array_equal(state_t.crowd_aux.robot_vel.numpy(),
+                                  want.crowd_aux.robot_vel)
+    _assert_ped_obs_exact(obs_t, obs_j)
+
+
+# ---------------------------------------------------------------------
+# the shipped configs that need the ORCA crowds or the circle/view poses
+# ---------------------------------------------------------------------
+
+SHIPPED = ("test.yaml", "ervo_crowd.yaml", "circle.yaml", "random.yaml")
+
+
+@pytest.mark.parametrize("name", SHIPPED)
+def test_shipped_config_resets_and_steps(name):
+    """The config read with yaml in the test (the package reads no yaml),
+    its views shrunk to 3 m at 0.05 m and 96 beams to keep the CPU quick;
+    crowd model, pose types, obstacles and beeps as shipped."""
+    import os
+
+    import yaml
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "img_env_tpu", "configs", name)
+    with open(path) as f:
+        d = yaml.safe_load(f)
+    d.update(view_map={"resolution": 0.05, "width": 3, "height": 3},
+             range_total=96)
+    env = NavEnv(EnvConfig.from_dict(d), "cpu", seed=3)
+    state, obs = env.reset()
+    n, m = env.cfg.robot.total, env.cfg.ped_sim.total
+    start = state.peds.pos.clone()
+    act = torch.zeros((n, 3))
+    act[:, 0], act[:, 2] = 0.3, 1.0
+    for _ in range(2):
+        state, obs, reward, done, info = env.step(state, act)
+    assert obs.sensor_maps.shape == (n, 48, 48)
+    assert obs.ped_maps.shape == (n, 3, 48, 48)
+    for x in (obs.lasers, obs.ped_vector_states, state.peds.pos,
+              state.peds.vel):
+        assert bool(torch.isfinite(x).all())
+    assert state.peds.pos.shape == (m, 2)
+    assert float((state.peds.pos - start).abs().max()) > 0
+    if env.scene_type in ("rvoscene", "ervoscene"):
+        assert state.obstacles.segs is not None

@@ -34,7 +34,7 @@ from img_env_tpu_torch.env.nav_env import NavEnv
 from img_env_tpu_torch.mpc import cost, mppi
 from img_env_tpu_torch.mpc.controller import MpcController, MpcState
 
-from tests.test_torch_env import ped_cfg_dict, small_cfg_dict
+from tests.test_torch_env import orca_cfg_dict, ped_cfg_dict, small_cfg_dict
 
 K, H = 128, 12
 
@@ -163,7 +163,7 @@ def test_act_without_episode_edt_uses_static_edt():
 
 
 @pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
-@pytest.mark.parametrize("head", ["cv", "sfm"])
+@pytest.mark.parametrize("head", ["cv", "sfm", "orca"])
 def test_act_with_peds_matches_jax(head, x64):
     """The pedscene config after two crowd steps (peds moving): the
     avoidance set is every ped, predicted by the head, plus the other
@@ -200,7 +200,45 @@ def test_act_with_peds_matches_jax(head, x64):
                                rtol=tol["cost"])
 
 
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_act_with_orca_head_and_segments_matches_jax(x64):
+    """The 'orca' head in an rvoscene episode: the prediction runs against
+    the reset's split segments (controller.py:104-109), after two crowd
+    steps.  Same noise and tolerances as the other heads."""
+    d = orca_cfg_dict("rvoscene")
+    tol = TOLS[x64]
+    with jax.enable_x64(x64):
+        env_j = JaxNavEnv(JaxEnvConfig.from_dict(d))
+        ctl_j = JaxMpc(env_j, jmppi.MppiConfig(horizon=H, samples=K),
+                       ped_prediction="orca")
+        state_j, _ = env_j.reset(jax.random.PRNGKey(13))
+        for _ in range(2):
+            state_j, *_ = env_j.step(state_j, np.tile(
+                np.asarray([[0.3, 0.2, 0.0]]), (3, 1)))
+        key = jax.random.PRNGKey(14)
+        noise = np.array(_jax_noise(key, 3))
+        a_j, ms_j, c_j = jax.jit(ctl_j.act_fn)(key, state_j,
+                                               ctl_j.init_state())
+    assert state_j.obstacles.segs is not None
+    env_t = NavEnv(EnvConfig.from_dict(d), "cpu")
+    ctl_t = MpcController(env_t, mppi.MppiConfig(horizon=H, samples=K),
+                          ped_prediction="orca")
+    state_t = world_state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, state_j))
+    assert state_t.obstacles.segs is not None
+    dtype = state_t.robots.pose.dtype
+    a_t, ms_t, c_t = ctl_t.act_fn(
+        state_t, MpcState(torch.zeros((3, H, 2), dtype=dtype)),
+        torch.as_tensor(noise))
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j),
+                               atol=tol["act"], rtol=0)
+    np.testing.assert_allclose(ms_t.nominal.numpy(), np.asarray(ms_j.nominal),
+                               atol=tol["nom"], rtol=0)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j),
+                               rtol=tol["cost"])
+
+
 def test_unported_prediction_head_raises():
     env_t = NavEnv(EnvConfig.from_dict(ped_cfg_dict()), "cpu")
     with pytest.raises(NotImplementedError):
-        MpcController(env_t, ped_prediction="orca")
+        MpcController(env_t, method="cem")

@@ -1,6 +1,7 @@
 """The torch port imports and runs with JAX, the JAX package, OpenCV, PIL
 and yaml all absent — the installation of the machine with the GPU: one
-MPC act and env step without pedestrians, and one with the SFM crowd."""
+MPC act and env step without pedestrians, one with the SFM crowd, and one
+with the ERVO crowd planned with the 'orca' head."""
 
 import json
 import os
@@ -8,7 +9,7 @@ import subprocess
 import sys
 import textwrap
 
-from tests.test_torch_env import ped_cfg_dict, small_cfg_dict
+from tests.test_torch_env import orca_cfg_dict, ped_cfg_dict, small_cfg_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -61,3 +62,7 @@ def test_port_crowd_step_without_jax_cv2_pil_yaml():
     d = ped_cfg_dict()
     d["paint_mode"] = "block"
     _run(d, head="sfm")
+
+
+def test_port_ervo_crowd_step_without_jax_cv2_pil_yaml():
+    _run(orca_cfg_dict("ervoscene"), head="orca")

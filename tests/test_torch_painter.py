@@ -196,3 +196,32 @@ def test_paint_blocks_layout_matches_twin_and_gen1_kernel(rng, beams):
     np.testing.assert_array_equal(
         _emulate_blocks(blocks, s_hit.numpy(), s_tail.numpy(),
                         pst_t.n_slots), want.numpy())
+
+
+def test_paint_rows_stay_within_the_beams(rng):
+    """K3 reads the thresholds of every beam of a row's window, so no
+    window may run past the last beam (the TPU layout pads the beams to a
+    multiple of 128: at 96 beams one window used to end at beam 104, and
+    at 960 beams the kernel read up to 64 rows past the end of its
+    threshold buffers, an illegal address when that buffer ended a mapped
+    segment).  The trimmed rows still paint what the twin paints."""
+    from img_env_tpu_torch.config import EnvConfig
+    from img_env_tpu_torch.env.nav_env import NavEnv
+
+    from tests.test_torch_env import small_cfg_dict
+
+    env = NavEnv(EnvConfig.from_dict(small_cfg_dict()), "cpu")
+    st = env.statics
+    beams = st.view_params.range_total
+    rows = painter.PaintRows.build(st.paint_t, beams)
+    assert (rows.rb + rows.w <= beams).all()
+    assert rows.table.shape == (int(rows.w.sum()), painter.G8)
+    n = 3
+    s_hit = torch.as_tensor(rng.integers(0, 40, (n, beams)), dtype=torch.int32)
+    s_tail = s_hit + torch.as_tensor(rng.integers(0, 4, (n, beams)),
+                                     dtype=torch.int32)
+    tb = painter.make_painter_tables(st.painter, rows, "cpu")
+    want = painter.paint(st.painter, tb, s_hit, s_tail)
+    np.testing.assert_array_equal(
+        _emulate_rows(rows, s_hit.numpy(), s_tail.numpy(),
+                      st.painter.n_slots), want.numpy())

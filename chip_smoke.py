@@ -13,12 +13,18 @@ beep_r 1.0 and ped_ca_p 0.8 as in img_env_tpu/configs/ervo_crowd.yaml):
   1. versions and the card (nvidia-smi name, power limit);
   2. builds the five CUDA kernels from ``img_env_tpu_torch/csrc`` (one
      nvcc per source, in parallel);
-  3. NavEnv(cfg, "cuda") + MpcController for bench200 and bench200ped;
+  3. NavEnv(cfg) + MpcController for bench200, bench200ped and
+     bench200ervo;
   4. holds each kernel bit-equal to its plain-torch twin at the production
-     shapes and times both: K1 raster, K2 FOV fill, K3 painter and K5
-     gen-1 painter at bench200, K4 ped map at bench200ped (its reset with
-     a seeded velocity per ped, and a copy with forced ties and peds on the
-     window edge);
+     shapes and times both, beside the least time the card could take
+     (its bound: bytes over 3.35 TB/s or operations over 67 T/s): K1
+     raster, K2 FOV fill (with its bitmap pre-pass) and K3 painter at
+     bench200, K2 also with robots on the map edges, on the crowd resets'
+     maps and on two scenes stacked, K3 also on the crowd resets'
+     thresholds, on no hits and on hits at every beam's first step, and
+     timed on subsets of its layout; K5 gen-1 painter at bench200; K4 ped
+     map at bench200ped (its reset with a seeded velocity per ped, and a
+     copy with forced ties and peds on the window edge);
   5. the bench200 path: reset + control steps (act, then step);
   6. the crowd path: bench200ped reset + 3 warm-up and 20 timed control
      steps, the bench.py crowd checksum; every step launches K1-K4, and
@@ -40,9 +46,10 @@ beep_r 1.0 and ped_ca_p 0.8 as in img_env_tpu/configs/ervo_crowd.yaml):
      (ervoscene, beeps), and a dataset scene replaying a seeded synthetic
      trajectory; each ends with a reset that carries the last state over.
 
-Each path's launch counts are set to 0 just before it and read just after.
-Any failed phase raises.  Prints the kernels' JSON line, then as its last
-line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
+Each path's launch counts are set to 0 just before it and read just after
+(per control step: the reset's launches left out).  Any failed phase
+raises.  Prints the kernels' JSON line, then as its last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
 """
 
 from __future__ import annotations
@@ -230,10 +237,124 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def selfcheck(env, state):
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+FLAT_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores,
+                            # taken for the kernels' integer work as well
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by, nbytes, ops): the least time for ``nbytes``
+    moved (each input read once, each output written once) and ``ops``
+    operations."""
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = ops / FLAT_OPS_PER_S * 1e3
+    return (b, "bytes", nbytes, ops) if b >= o else (o, "operations",
+                                                     nbytes, ops)
+
+
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def fill_args(env, packed, poses, nps=None):
+    ps, t = env.statics.polar, env.tables.polar
+    return (packed, torch.cos(poses[:, 2]), torch.sin(poses[:, 2]),
+            poses[:, 0].contiguous(), poses[:, 1].contiguous(), t.pix_x,
+            t.pix_y, int(ps.n_fill_slots), env.statics.resolution, nps)
+
+
+def check_fill(name, args):
+    """K2 (the bitmap pre-pass and the fill) against its twin; returns the
+    kernel's occupancy."""
+    from img_env_tpu_torch.ops import polar
+
+    occ_k = polar.fill_sorted_kernel(*args)
+    occ_t = polar.fill_sorted_twin(*args)
+    mism = int((occ_k != occ_t).sum())
+    log(f"# K2 fill, {name}: {mism} mismatched slots of {occ_k.numel()} "
+        f"({int(occ_k.sum())} occupied)")
+    if mism:
+        raise AssertionError(f"K2 fill kernel != twin ({name})")
+    return occ_k
+
+
+def thresholds(env, occ):
+    from img_env_tpu_torch.ops import painter, polar
+
+    _, _, aux = polar.raycast_batched(env.statics.polar, env.tables.polar,
+                                      occ)
+    return painter.hit_steps(env.statics.painter, env.tables.painter, *aux)
+
+
+def check_paint(name, env, s_hit, s_tail):
+    """K3 bit-equal to its twin on one set of thresholds; returns both."""
+    from img_env_tpu_torch.ops import painter
+
+    pst, t = env.statics.painter, env.tables.painter
+    v_k = painter.paint_slots_kernel(t, s_hit, s_tail, pst.n_slots)
+    v_t = painter.paint_sorted(pst, t, s_hit, s_tail)
+    mism = int((v_k != v_t).sum())
+    log(f"# K3 paint, {name}: {mism} mismatched slots of {v_k.numel()}; "
+        f"values {sorted(torch.unique(v_k).tolist())}")
+    if mism:
+        raise AssertionError(f"K3 paint kernel != twin ({name})")
+    return v_k, v_t
+
+
+def k3_tests(t, s_hit, s_tail, n_slots):
+    """Visit tests K3's walk needs for these thresholds: per robot and
+    slot, its visits down to the first that writes (all of them when none
+    writes)."""
+    off, visits = t.slots
+    counts = (off[1:] - off[:-1]).long()
+    slot = torch.repeat_interleave(
+        torch.arange(n_slots, device=off.device), counts)
+    pos = torch.arange(visits.numel(), device=off.device) - off[:-1].long()[slot]
+    beam, T = (visits >> 16).long(), (visits & 0xFFFF).long()
+    h, tail = s_hit.long()[:, beam], s_tail.long()[:, beam]
+    writes = (T <= h) | (T == h + 1) | (T > tail)
+    need = torch.where(writes, pos + 1, counts[slot])
+    first = torch.full((s_hit.shape[0], n_slots), 1 << 30,
+                       dtype=torch.int64, device=off.device).scatter_reduce(
+        1, slot[None].expand_as(need), need, "amin")
+    return int(torch.where(counts == 0, 0, first).sum())
+
+
+def k3_subsets(env, s_hit, s_tail):
+    """K3 on subsets of its layout (each launch writes the whole output):
+    only the dense near-sensor slots' visits (> 256 visiting beams), only
+    the other visited slots' visits, and no visits at all (every slot 200:
+    the store floor).  Returns {name: ms}."""
+    import numpy as np
+
+    from img_env_tpu_torch.ops import painter
+
+    pst = env.statics.painter
+    full = painter.PaintSlots.build(pst)
+    counts = np.diff(full.off.astype(np.int64))
+    out = {}
+    for name, keep in (("dense", counts > 256),
+                       ("rest", (counts > 0) & (counts <= 256)),
+                       ("empty", np.zeros_like(counts, bool))):
+        kc = np.where(keep, counts, 0)
+        sub = painter.PaintSlots(
+            off=np.concatenate([[0], np.cumsum(kc)]).astype(np.int32),
+            visits=full.visits[np.repeat(keep, counts)])
+        t = painter.make_painter_tables(pst, sub, s_hit.device)
+        out[name] = cuda_ms(lambda: painter.paint_slots_kernel(
+            t, s_hit, s_tail, pst.n_slots), 20)
+        log(f"# K3 subset {name}: {int(keep.sum())} slots keep "
+            f"{int(kc.sum())} visits, {out[name]:.4f} ms")
+    return out
+
+
+def selfcheck(env, state, crowds):
     """Each kernel against its twin on the same device tensors at the
-    production shapes; returns {name: (max_abs_err, ms, plain_ms)}."""
-    from img_env_tpu_torch.ops import painter, polar, raster
+    production shapes, timed at bench200; ``crowds``: (name, env, state)
+    of the crowd paths, whose packed maps and thresholds K2 and K3 are
+    held on too.  Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, bytes, operations)}."""
+    from img_env_tpu_torch.ops import painter, raster
 
     st, t = env.statics, env.tables
     res = st.resolution
@@ -261,53 +382,80 @@ def selfcheck(env, state):
                                                      h, w), 50)
     k1_plain = cuda_ms(lambda: raster.robot_maps_twin(cells, t.robot_mask,
                                                       h, w), 10)
-    out["raster"] = (k1_err, k1_ms, k1_plain)
+    n, npts = t.robot_mask.shape
+    out["raster"] = (k1_err, k1_ms, k1_plain,
+                     *bound(nbytes(cells, t.robot_mask) + h * w * 4,
+                            4 * n * npts))
 
-    # K2: the layers' packed map of the crowded poses
-    layers = raster.build_layers(
+    # K2: the crowded poses' packed map (timed); robots on the map's edges
+    # and corners; the crowd states' maps (ped legs); two scenes stacked,
+    # robot i reading scene i // 100
+    from img_env_tpu_torch.ops import polar
+
+    packed = raster.build_layers(
         state.obs_map, res, crowded, t.robot_points, t.robot_mask,
         torch.zeros((0, 3), device=poses.device),
         *([torch.zeros((0, 1, 2), device=poses.device),
-           torch.zeros((0, 1), dtype=torch.bool, device=poses.device)] * 3))
-    ps = st.polar
-    cos, sin = torch.cos(crowded[:, 2]), torch.sin(crowded[:, 2])
-    px, py = crowded[:, 0].contiguous(), crowded[:, 1].contiguous()
-    nf = int(ps.n_fill_slots)
-    args = (layers.packed, cos, sin, px, py, t.polar.pix_x, t.polar.pix_y,
-            nf, res)
-    occ_k = polar.fill_sorted_kernel(*args)
-    occ_t = polar.fill_sorted_twin(*args)
-    mism = int((occ_k != occ_t).sum())
-    k2_err = float((occ_k.int() - occ_t.int()).abs().max())
-    log(f"# K2 fill: {mism} mismatched slots of {occ_k.numel()} "
-        f"({int(occ_k.sum())} occupied)")
-    if mism:
-        raise AssertionError("K2 fill kernel != twin")
-    out["fill"] = (k2_err,
-                   cuda_ms(lambda: polar.fill_sorted_kernel(*args), 20),
-                   cuda_ms(lambda: polar.fill_sorted_twin(*args), 5))
+           torch.zeros((0, 1), dtype=torch.bool, device=poses.device)] * 3)
+    ).packed
+    args = fill_args(env, packed, crowded)
+    occ_k = check_fill("crowded poses", args)
+    edge = crowded.clone()
+    top_x, top_y = (h - 1) * res, (w - 1) * res
+    edge[0:10, 0], edge[10:20, 0] = 0.0, top_x
+    edge[20:30, 1], edge[30:40, 1] = 0.0, top_y
+    edge[40:44, :2] = torch.tensor([[0.0, 0.0], [top_x, 0.0], [0.0, top_y],
+                                    [top_x, top_y]], device=edge.device)
+    check_fill("robots on the map edge", fill_args(env, packed, edge))
+    crowd_occ = {}
+    for name, env_c, state_c in crowds:
+        crowd_occ[name] = check_fill(name, fill_args(
+            env_c, env_c._layers(state_c).packed, state_c.robots.pose))
+    n_half = poses.shape[0] // 2
+    stacked = torch.stack([packed, crowds[0][1]._layers(crowds[0][2]).packed])
+    check_fill("two scenes stacked", fill_args(env, stacked, crowded,
+                                               n_half))
+    k2_ms = cuda_ms(lambda: polar.fill_sorted_kernel(*args), 20)
+    # bytes: the map, the gated prefix's slot coordinates (the suffix is
+    # written as 0 unread), the four pose terms and the bool output
+    maps = packed[None]
+    n_slots, nf = t.polar.pix_x.shape[0], int(st.polar.n_fill_slots)
+    out["fill"] = (0.0, k2_ms,
+                   cuda_ms(lambda: polar.fill_sorted_twin(*args), 5),
+                   *bound(nbytes(maps, t.polar.pix_x[:nf], t.polar.pix_y[:nf])
+                          + 4 * 4 * n + n * n_slots,
+                          10 * n * nf + 2 * maps.numel()))
 
-    # K3: thresholds from the raycast of that occupancy
-    _, _, aux = polar.raycast_batched(ps, t.polar, occ_k)
-    s_hit, s_tail = painter.hit_steps(st.painter, t.painter, *aux)
-    v_k = painter.paint_rows_kernel(t.painter, s_hit, s_tail,
-                                    st.painter.n_slots)
-    v_t = painter.paint_sorted(st.painter, t.painter, s_hit, s_tail)
+    # K3: thresholds from the raycast of the crowded occupancy (timed),
+    # from the crowd states, and forced: no beam hits, every beam hits at
+    # its first step
+    s_hit, s_tail = thresholds(env, occ_k)
+    v_k, v_t = check_paint("bench200 crowded", env, s_hit, s_tail)
     err = float((v_k - v_t).abs().max())
-    mism = int((v_k != v_t).sum())
-    log(f"# K3 paint: {mism} mismatched slots of {v_k.numel()}; values "
-        f"{sorted(torch.unique(v_k).tolist())}")
-    if mism:
-        raise AssertionError("K3 paint kernel != twin")
-    out["paint"] = (err, cuda_ms(lambda: painter.paint_rows_kernel(
+    for name, env_c, _ in crowds:
+        check_paint(name, env_c, *thresholds(env_c, crowd_occ[name]))
+    r_beams, n_steps = s_hit.shape[1], st.painter.n_steps
+    miss = torch.full_like(s_hit, 2 ** 14)
+    check_paint("no beam hits", env, miss, miss)
+    zero = torch.zeros_like(s_hit)
+    tail0 = t.painter.nxt[:, 0][None].expand_as(s_hit).to(torch.int16)
+    check_paint("every beam hits at step 0", env, zero, tail0.contiguous())
+    subsets = k3_subsets(env, s_hit, s_tail)
+    tests = k3_tests(t.painter, s_hit, s_tail, st.painter.n_slots)
+    log(f"# K3 walk: {tests / n:.1f} visit tests per robot "
+        f"({t.painter.slots[1].numel()} visits)")
+    out["paint"] = (err, cuda_ms(lambda: painter.paint_slots_kernel(
         t.painter, s_hit, s_tail, st.painter.n_slots), 20),
         cuda_ms(lambda: painter.paint_sorted(st.painter, t.painter, s_hit,
-                                             s_tail), 3))
+                                             s_tail), 3),
+        *bound(nbytes(s_hit, s_tail, *t.painter.slots, v_k),
+               4 * tests + v_k.numel()))
+    out["paint_subsets"] = subsets
 
     # K5: the same thresholds through the gen-1 64-slot blocks; its twin
     # is the same dense decode
     tb = painter.make_painter_tables(
-        st.painter, painter.PaintBlocks.build(st.painter, s_hit.shape[1]),
+        st.painter, painter.PaintBlocks.build(st.painter, r_beams),
         poses.device)
     v_b = painter.paint_blocks_kernel(tb, s_hit, s_tail, st.painter.n_slots)
     mism = int((v_b != v_t).sum())
@@ -321,7 +469,9 @@ def selfcheck(env, state):
         cuda_ms(lambda: painter.paint_blocks_kernel(
             tb, s_hit, s_tail, st.painter.n_slots), 20),
         cuda_ms(lambda: painter.paint_sorted(st.painter, tb, s_hit, s_tail),
-                3))
+                3),
+        *bound(nbytes(s_hit, s_tail, *tb.blocks, v_b),
+               4 * n * int((tb.blocks[4] != 0).sum())))
     return out
 
 
@@ -332,7 +482,8 @@ def selfcheck_pedmap(env, state):
     carries its own velocity (seeded), so the vx/vy channels name the
     winning ped: on the tie copy, the twin with ties given to the smaller
     index must differ from the twin, or the check could not see K4's
-    winner rule.  Returns (max_abs_err, ms, plain_ms)."""
+    winner rule.  Returns (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, bytes, operations)."""
     from img_env_tpu_torch.env import observe
     from img_env_tpu_torch.ops import pedmap
 
@@ -373,9 +524,17 @@ def selfcheck_pedmap(env, state):
         "smaller index")
     if seen == 0:
         raise AssertionError("K4 check cannot see the tie rule")
+    # operations: a window test per (robot, ped), and per ped in the
+    # window ~6 per pixel of its disc's index box
+    n, m = base[0].shape
+    inside = ((base[0].abs() <= 3.0 + r_img)
+              & (base[1].abs() <= 3.0 + r_img)).sum()
+    box = (int(2 * r_img / res) + 2) ** 2
     return (err, cuda_ms(lambda: pedmap.ped_map_kernel(*base, res, r_img,
                                                        hs), 50),
-            cuda_ms(lambda: pedmap.ped_map_twin(*base, res, r_img, hs), 5))
+            cuda_ms(lambda: pedmap.ped_map_twin(*base, res, r_img, hs), 5),
+            *bound(nbytes(*base) + n * 3 * hs * hs * 4,
+                   12 * n * m + 6 * box * int(inside)))
 
 
 class PathRun(NamedTuple):
@@ -383,6 +542,7 @@ class PathRun(NamedTuple):
     state: object         # after the last step
     ms_step: float
     launches: dict
+    per_step: dict        # launches per control step, the reset's left out
     checksum: float
     obs: object
     beeps: float          # beeping robots summed over the steps
@@ -399,6 +559,7 @@ def run_path(env, ctl, warmup: int, iters: int, must_launch, never=(),
 
     kernels.reset_launch_counts()
     state, obs = env.reset()
+    at_reset = dict(kernels.LAUNCHES)
     state0 = state
     mpc_state = ctl.init_state()
     zero = lambda: torch.zeros((), dtype=torch.float64, device=env.device)
@@ -443,10 +604,12 @@ def run_path(env, ctl, warmup: int, iters: int, must_launch, never=(),
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) / max(iters, 1) * 1e3
     launches = dict(kernels.LAUNCHES)
+    per_step = {k: (v - at_reset[k]) / (warmup + iters)
+                for k, v in launches.items()}
     if not (bool(torch.isfinite(checksum)) and bool(torch.isfinite(cost_sum))):
         raise AssertionError("non-finite checksum or MPC costs")
-    return PathRun(state0, state, ms_step, launches, float(checksum), obs,
-                   float(beeps))
+    return PathRun(state0, state, ms_step, launches, per_step,
+                   float(checksum), obs, float(beeps))
 
 
 def orca_step_cost(env, state):
@@ -501,6 +664,7 @@ def block_path(cfg_dict, env_default):
                  env_default.device)
     kernels.reset_launch_counts()
     state, obs = env.reset()
+    at_reset = dict(kernels.LAUNCHES)
     n = env.cfg.robot.total
     act = torch.zeros((n, 3), device=env.device)
     act[:, 0] = 0.4
@@ -513,6 +677,8 @@ def block_path(cfg_dict, env_default):
             raise AssertionError("block path: a step did not run K5 alone")
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    per_step = {k: (v - at_reset[k]) / BLOCK_STEPS
+                for k, v in launches.items()}
     _, o_b = env._observe(state)
     _, o_d = env_default._observe(state)
     for f in ("sensor_maps", "lasers", "is_collisions"):
@@ -520,7 +686,7 @@ def block_path(cfg_dict, env_default):
         log(f"# block path: {f} {mism} mismatches vs the K3 env")
         if mism:
             raise AssertionError(f"block path: {f} differ from K3's")
-    return launches
+    return launches, per_step
 
 
 # crowd step, card vs CPU, from one state: (m, m/s) per crowd model
@@ -674,7 +840,7 @@ def main() -> None:
 
     def make(cfg_dict):
         t0 = time.perf_counter()
-        env = NavEnv(EnvConfig.from_dict(cfg_dict), "cuda")
+        env = NavEnv(EnvConfig.from_dict(cfg_dict))
         ctl = MpcController(env, MppiConfig(horizon=H, samples=K))
         t_statics = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -684,13 +850,20 @@ def main() -> None:
             f"{t_statics:.3f} s, reset {time.perf_counter() - t0:.3f} s "
             f"(P'={env.statics.polar.n_slots}, gated "
             f"{env.statics.polar.n_fill_slots}, "
-            f"K3 rows {env.tables.painter.rows[0].shape[0]})")
+            f"K3 visits {env.tables.painter.slots[1].numel()})")
         return env, ctl, state
 
     env, ctl, state = make(BENCH200)
     env_p, ctl_p, state_p = make(BENCH200PED)
-    checks = selfcheck(env, state)
+    env_e, ctl_e, state_e = make(BENCH200ERVO)
+    checks = selfcheck(env, state, [("bench200ped", env_p, state_p),
+                                    ("bench200ervo", env_e, state_e)])
     checks["pedmap"] = selfcheck_pedmap(env_p, state_p)
+    for name, c in checks.items():
+        if name != "paint_subsets":
+            log(f"# {name}: {c[1]:.4f} ms, bound {c[3] * 1e3:.2f} us "
+                f"({c[4]}: {c[5]} bytes, {c[6]} operations), share "
+                f"{c[3] / c[1]:.3f}, plain {c[2]:.4f} ms")
 
     # ---- the bench200 path ----
     run = run_path(env, ctl, WARMUP, BENCH_ITERS, ("raster", "fill", "paint"),
@@ -741,10 +914,8 @@ def main() -> None:
 
     # ---- the crowd path (bench200ped) ----
     run_p, _ = crowd_path("crowd", env_p, ctl_p, ITERS)
-    launches_p = run_p.launches
 
     # ---- the ERVO path (bench200ervo), then the 'orca' head ----
-    env_e, ctl_e, _ = make(BENCH200ERVO)
     run_e, _ = crowd_path("ERVO", env_e, ctl_e, ERVO_ITERS, beep=True)
     ops, busy, host = orca_step_cost(env_e, run_e.state)
     log(f"# ORCA crowd step at bench200ervo: {ops} device operations, "
@@ -762,7 +933,7 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
     # ---- the block-painter path ----
-    launches_b = block_path(BENCH200, env)
+    launches_b, per_step_b = block_path(BENCH200, env)
     log(f"# block-painter path: launches {launches_b} "
         f"(reset + {BLOCK_STEPS} steps)")
 
@@ -783,14 +954,22 @@ def main() -> None:
             "paint": ("paint.cu", "img_env_tpu/ops/pallas_paint_t.py:215",
                       launches),
             "pedmap": ("pedmap.cu", "img_env_tpu/ops/pallas_pedmap.py:116",
-                       launches_p),
+                       run_p.launches),
             "paint_block": ("paint_block.cu",
                             "img_env_tpu/ops/pallas_paint.py:152",
                             launches_b)}
+    per_step = {"bench200": run.per_step, "bench200ped": run_p.per_step,
+                "bench200ervo": run_e.per_step,
+                "bench200 paint_mode=block": per_step_b}
     rows = [{"name": name, "route": "cuda", "source": src + cu,
              "replaces": replaces, "launches": runs[name],
+             "launches_per_step": {p: c[name] for p, c in per_step.items()},
              "max_abs_err": checks[name][0], "ms": checks[name][1],
-             "plain_ms": checks[name][2]}
+             "plain_ms": checks[name][2], "bound_ms": checks[name][3],
+             "bound_by": checks[name][4], "bytes": checks[name][5],
+             "ops": checks[name][6], "library_ms": None,
+             **({"subset_ms": checks["paint_subsets"]} if name == "paint"
+                else {})}
             for name, (cu, replaces, runs) in meta.items()]
     log(card_line())
     print(json.dumps({"kernels": rows}), flush=True)

@@ -22,11 +22,9 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence, Tuple
 
-# the map PNGs ship once, in the JAX package's directory; this package reads
-# them from there (a data path, not an import)
-_DEF_MAP_DIR = os.path.normpath(os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), os.pardir, "img_env_tpu",
-    "maps"))
+# the map PNGs this package ships (package data, img_env_tpu_torch/maps/)
+_DEF_MAP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "maps")
 
 
 def _pad_list(lst: Sequence, n: int, pad_with_last: bool = True) -> list:

@@ -1,4 +1,4 @@
-// K3: exact laser view-map painter over slot rows.
+// K3: exact laser view-map painter over slot-order tiles.
 //
 // Replaces the Pallas TPU kernel img_env_tpu/ops/pallas_paint_t.py
 // (paint_sorted_pallas_t / _paint_t_kernel, one pallas_call per width
@@ -7,96 +7,187 @@
 // artifacts; its dense "wide" near-sensor rows run there on the XLA path.
 //
 // Semantics (agent.cpp:511-624): per robot and slot, the highest-index beam
-// whose Bresenham walk visits the slot decides the value.  With T = step+1
-// of the visit, code 2 (T <= s_hit, before the hit) -> 255, code 3
-// (T == s_hit + 1, the hit) -> 0, code 1 (T > s_tail, after the minor-run)
-// -> 200, code 0 -> no write; no writer -> 200 (CELL_UNSEEN).  The key
-// (beam << 2) | code max-reduced over visitors picks the last writer and
-// its value at once.  Integer arithmetic only: bit-equal to the twin.
+// whose Bresenham walk visits the slot and writes decides the value.  With
+// T = step+1 of the visit, code 2 (T <= s_hit, before the hit) -> 255, code
+// 3 (T == s_hit + 1, the hit) -> 0, code 1 (T > s_tail, after the
+// minor-run) -> 200, code 0 -> no write; no writer -> 200 (CELL_UNSEEN).
+// The twin max-reduces the key (beam << 2) | code over the visitors; a
+// slot's visitors have distinct beams, so the first writing visitor in
+// descending beam order is that maximum.  Integer arithmetic only:
+// bit-equal to the twin (ops/painter.py paint_sorted).
 //
-// What bounds it on the H100: integer compare/select work, ~1 M
-// (beam, slot) window entries per robot x 200 robots, plus reads of
-// s_hit / s_tail rows that stay in L1/L2.  Output is 200 x ~165 k f32.
-// Design: a row is <= 8 slots (a group of 8 consecutive slots sharing one
-// tight beam window, a pack of 8 near-sensor "wide" slots over all beams,
-// or 8 slots no beam visits).  Threads: x = 32 robots (one warp), y = rows.
-// A warp walks its row's beam window once: per beam it reads the
-// transposed s_hit / s_tail rows for its 32 robots (one coalesced 128-byte
-// read each) and the row's 8 int16 visit steps (one 16-byte broadcast
-// load), and keeps 8 running max keys in registers.  One launch covers all
-// rows through per-row window offsets (CSR); each slot belongs to exactly
-// one row and is written straight into slot order, so no reorder pass.
+// What bounds it on the H100: output bytes.  At bench200 the output is
+// 200 robots x 176,128 slots x 4 B = 140.9 MB; the inputs (s_hit / s_tail
+// int16 [200, 960], 0.77 MB; the slot offsets, 0.70 MB; 192,718 packed
+// visits, 0.77 MB) add 2.2 MB, so the least time is ~43 us at 3.35 TB/s.
+// The work is ~79 k visit tests per robot (each a threshold read and at
+// most three integer compares), far below the byte bound.  The slot-row
+// kernel this replaces took 0.94 ms: a warp per row and 32 robots walked
+// every beam of the row's window serially (two dense rows over all 960
+// beams alone took 0.31 ms), and each store touched 32 robots' rows.
+//
+// Design: the layout (painter.PaintSlots) lists, per slot in slot order,
+// the visiting beams in descending order as (beam << 16) | T (CSR offsets
+// per slot).  A block of 256 threads owns a tile of 1024 consecutive slots
+// and a chunk of 4 robots; the robot chunk is the grid's fast index, so
+// the heavy near-sensor tiles (the first in slot order) run first and the
+// empty tiles last.  Each thread owns 4 consecutive slots and reads their
+// offsets and first two visits once; the block finds the tile's beam range
+// (each slot's first and last visit bound it) and stages its robots' s_hit
+// / s_tail over that range in shared memory, packed into one int32 per
+// beam, so a test costs one shared-memory read.  Per robot a thread tests
+// each slot's first (highest) visit, which decides at least 97% of (robot,
+// visited slot) pairs at bench200 (78,821 tests per robot for 76,731
+// visited slots), then its second; slots no beam visits get 200 with no
+// test.  The slots still undecided in a warp are then walked one at a time
+// by all 32 lanes together, 32 visits per step with the next step's visits
+// already loading, the lowest writing lane deciding (warp ballot): a
+// near-sensor slot with 960 visitors, or a slot behind a robot's hit whose
+// top beams all fall in their minor runs, costs a few steps instead of a
+// serial walk.  Each thread stores its 4 values as one 16-byte streaming
+// store: a warp writes 512 contiguous bytes of one robot's row.  At
+// bench200 the stores alone (no visit tested) take ~0.051 ms.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define PAINT_ROBOTS 32
-#define PAINT_ROWS_PER_BLOCK 8
-#define PAINT_G 8
+#define PAINT_THREADS 256
+#define PAINT_WARPS (PAINT_THREADS / 32)
+#define PAINT_SPT 4                               // slots per thread
+#define PAINT_TILE (PAINT_THREADS * PAINT_SPT)    // slots per block
+#define PAINT_ROBOTS 4                            // robots per block
+#define FULL_MASK 0xffffffffu
 
-__device__ __forceinline__ float decode_key(int key) {
-  if (key < 0) return 200.f;
-  const int c = key & 3;
-  return c == 2 ? 255.f : (c == 3 ? 0.f : 200.f);
+// value written by visit pk = (beam << 16) | T under the packed thresholds
+// th[beam] = s_hit | s_tail << 16, or -1 (no write)
+__device__ __forceinline__ float visit_value(int pk, const int* th) {
+  const int t = th[pk >> 16], T = pk & 0xFFFF;
+  const int h = (short)(t & 0xFFFF);
+  if (T <= h) return 255.f;
+  if (T == h + 1) return 0.f;
+  return T > (t >> 16) ? 200.f : -1.f;
 }
 
-__global__ void paint_rows_kernel(const int* __restrict__ sh_t,
-                                  const int* __restrict__ st_t, int n,
-                                  const int* __restrict__ row_slots,
-                                  const int* __restrict__ row_rb,
-                                  const int* __restrict__ row_w,
-                                  const long long* __restrict__ row_off,
-                                  const short* __restrict__ table, int n_rows,
-                                  float* __restrict__ out, int n_slots) {
-  const int row = blockIdx.x * PAINT_ROWS_PER_BLOCK + threadIdx.y;
-  const int robot = blockIdx.y * PAINT_ROBOTS + threadIdx.x;
-  if (row >= n_rows) return;
-  const int rr = min(robot, n - 1);
-  const int rb = row_rb[row], wlen = row_w[row];
-  const short* t = table + row_off[row] * PAINT_G;
-  int acc[PAINT_G];
+__global__ void __launch_bounds__(PAINT_THREADS)
+paint_slots_kernel(const short* __restrict__ s_hit,
+                   const short* __restrict__ s_tail, int n, int n_beams,
+                   const int* __restrict__ slot_off,
+                   const int* __restrict__ visits, float* __restrict__ out,
+                   int n_slots) {
+  extern __shared__ int thr[];            // [robots][span] packed thresholds
+  __shared__ int red[2][PAINT_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = blockIdx.y * PAINT_TILE + threadIdx.x * PAINT_SPT;
+  const bool live = j0 < n_slots;         // every lane stays for the ballots
+  int lo[PAINT_SPT + 1], first[PAINT_SPT], second[PAINT_SPT];
+  int bmin = INT_MAX, bmax = -1;
 #pragma unroll
-  for (int g = 0; g < PAINT_G; ++g) acc[g] = -1;
-  for (int wp = 0; wp < wlen; ++wp) {
-    const int beam = rb + wp;
-    const int sh = sh_t[(size_t)beam * n + rr];
-    const int st = st_t[(size_t)beam * n + rr];
-    const int4 packed = *reinterpret_cast<const int4*>(t + (size_t)wp * PAINT_G);
-    const short* tv = reinterpret_cast<const short*>(&packed);
+  for (int k = 0; k <= PAINT_SPT; ++k) lo[k] = live ? __ldg(slot_off + j0 + k) : 0;
 #pragma unroll
-    for (int g = 0; g < PAINT_G; ++g) {
-      const int T = tv[g];
-      const int code = T <= 0 ? 0
-                       : (T <= sh ? 2 : (T == sh + 1 ? 3 : (T > st ? 1 : 0)));
-      if (code) acc[g] = max(acc[g], (beam << 2) | code);
+  for (int k = 0; k < PAINT_SPT; ++k) {
+    first[k] = 0;
+    second[k] = 0;
+    if (lo[k] < lo[k + 1]) {
+      first[k] = __ldg(visits + lo[k]);
+      if (lo[k] + 1 < lo[k + 1]) second[k] = __ldg(visits + lo[k] + 1);
+      bmax = max(bmax, first[k] >> 16);
+      bmin = min(bmin, __ldg(visits + lo[k + 1] - 1) >> 16);
     }
   }
-  if (robot >= n) return;
-  const int* slots = row_slots + (size_t)row * PAINT_G;
+  bmin = __reduce_min_sync(FULL_MASK, bmin);
+  bmax = __reduce_max_sync(FULL_MASK, bmax);
+  if (lane == 0) {
+    red[0][warp] = bmin;
+    red[1][warp] = bmax;
+  }
+  __syncthreads();
 #pragma unroll
-  for (int g = 0; g < PAINT_G; ++g) {
-    const int slot = slots[g];
-    if (slot >= 0) out[(size_t)robot * n_slots + slot] = decode_key(acc[g]);
+  for (int q = 0; q < PAINT_WARPS; ++q) {
+    bmin = min(bmin, red[0][q]);
+    bmax = max(bmax, red[1][q]);
+  }
+  const int span = bmax >= bmin ? bmax - bmin + 1 : 0;
+  if (!span) bmin = 0;                          // a tile no beam visits
+  const int r0 = blockIdx.x * PAINT_ROBOTS;
+  const int nr = min(PAINT_ROBOTS, n - r0);
+  for (int q = threadIdx.x; q < nr * span; q += PAINT_THREADS) {
+    const int rr = q / span;
+    const size_t g = (size_t)(r0 + rr) * n_beams + bmin + (q - rr * span);
+    thr[q] = (int)(unsigned short)s_hit[g] |
+             (int)((unsigned)(unsigned short)s_tail[g] << 16);
+  }
+  __syncthreads();
+
+  for (int rr = 0; rr < nr; ++rr) {
+    const int* th = thr + rr * span - bmin;     // indexed by beam
+    float v[PAINT_SPT];
+    unsigned pend = 0;                          // slots still undecided
+#pragma unroll
+    for (int k = 0; k < PAINT_SPT; ++k) {
+      v[k] = 200.f;
+      if (lo[k] < lo[k + 1]) {
+        float x = visit_value(first[k], th);
+        if (x < 0.f && lo[k] + 1 < lo[k + 1]) x = visit_value(second[k], th);
+        if (x >= 0.f) v[k] = x;
+        else if (lo[k] + 2 < lo[k + 1]) pend |= 1u << k;
+      }
+    }
+    for (unsigned todo = __ballot_sync(FULL_MASK, pend != 0); todo;
+         todo = __ballot_sync(FULL_MASK, pend != 0)) {
+      const int src = __ffs(todo) - 1;
+      const int k = __ffs(pend) - 1;            // meaningful on lane src
+      int a = 0, b = 0;
+#pragma unroll
+      for (int q = 0; q < PAINT_SPT; ++q)
+        if (q == k) { a = lo[q] + 2; b = lo[q + 1]; }
+      a = __shfl_sync(FULL_MASK, a, src);
+      b = __shfl_sync(FULL_MASK, b, src);
+      float res = 200.f;                        // no writer
+      int nxt = a + lane < b ? __ldg(visits + a + lane) : 0;
+      for (int e0 = a; e0 < b; e0 += 32) {
+        const int e = e0 + lane;
+        const int cur = nxt;
+        nxt = e + 32 < b ? __ldg(visits + e + 32) : 0;
+        const float x = e < b ? visit_value(cur, th) : -1.f;
+        const unsigned wr = __ballot_sync(FULL_MASK, x >= 0.f);
+        if (wr) {
+          res = __shfl_sync(FULL_MASK, x, __ffs(wr) - 1);
+          break;
+        }
+      }
+      if (lane == src) {
+#pragma unroll
+        for (int q = 0; q < PAINT_SPT; ++q)
+          if (q == k) v[q] = res;
+        pend &= pend - 1;
+      }
+    }
+    if (live)
+      __stcs(reinterpret_cast<float4*>(out + (size_t)(r0 + rr) * n_slots + j0),
+             make_float4(v[0], v[1], v[2], v[3]));
   }
 }
 
-// sh_t/st_t [R, n] int32 (transposed s_hit / s_tail); rows: slots [nr, 8]
-// int32 (-1 = none), window start rb [nr], width w [nr], table offset off
-// [nr] (in units of 8 int16), table [sum(w), 8] int16 visit step+1 (0 =
-// not visited); out [n, n_slots] f32, every slot written by one row.
-extern "C" int img_env_paint_rows(const int* sh_t, const int* st_t, int n,
-                                  const int* row_slots,
-                                  const int* row_rb, const int* row_w,
-                                  const long long* row_off, const short* table,
-                                  int n_rows, float* out, int n_slots,
-                                  cudaStream_t stream) {
-  if (n > 0 && n_rows > 0) {
-    dim3 block(PAINT_ROBOTS, PAINT_ROWS_PER_BLOCK);
-    dim3 grid((n_rows + PAINT_ROWS_PER_BLOCK - 1) / PAINT_ROWS_PER_BLOCK,
-              (n + PAINT_ROBOTS - 1) / PAINT_ROBOTS);
-    paint_rows_kernel<<<grid, block, 0, stream>>>(sh_t, st_t, n, row_slots,
-                                                  row_rb, row_w, row_off,
-                                                  table, n_rows, out, n_slots);
+// s_hit / s_tail [n, n_beams] int16; slot_off [n_slots + 1] int32 CSR
+// offsets into visits [nv] int32 (beam << 16) | (step + 1), each slot's
+// visits in descending beam order; out [n, n_slots] f32, n_slots a multiple
+// of 4.
+extern "C" int img_env_paint_slots(const short* s_hit, const short* s_tail,
+                                   int n, int n_beams, const int* slot_off,
+                                   const int* visits, float* out, int n_slots,
+                                   cudaStream_t stream) {
+  if (n <= 0 || n_slots <= 0) return 0;
+  const size_t smem = (size_t)PAINT_ROBOTS * n_beams * sizeof(int);
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        paint_slots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err) return err;
   }
+  dim3 grid((n + PAINT_ROBOTS - 1) / PAINT_ROBOTS,
+            (n_slots + PAINT_TILE - 1) / PAINT_TILE);
+  paint_slots_kernel<<<grid, PAINT_THREADS, smem, stream>>>(
+      s_hit, s_tail, n, n_beams, slot_off, visits, out, n_slots);
   return (int)cudaGetLastError();
 }

@@ -111,7 +111,6 @@ class EnvStatics(NamedTuple):
     limiter_v: LimiterParams
     limiter_w: LimiterParams
     painter: painter_mod.PainterStatics
-    paint_t: painter_mod.PaintTStatics
     orca_cfg: orca_mod.OrcaConfig
 
 
@@ -259,7 +258,7 @@ def build_statics(cfg: EnvConfig) -> EnvStatics:
         sampler=SamplerSpec.from_config(cfg),
         limiter_v=LimiterParams.from_config(cfg.speed_limiter_v),
         limiter_w=LimiterParams.from_config(cfg.speed_limiter_w),
-        painter=pst, paint_t=painter_mod.PaintTStatics.build(pst),
+        painter=pst,
         orca_cfg=orca_mod.OrcaConfig(
             time_step=float(cfg.control_hz),
             max_obs_segments=int(cfg.max_obs_segments)),
@@ -320,14 +319,17 @@ def make_crowd_tables(st: EnvStatics, cfg: EnvConfig, device) -> CrowdTables:
 
 
 class NavEnv:
-    """Single-scene environment on ``device`` ('cpu' or 'cuda')."""
+    """Single-scene environment on ``device``: the card by default; CPU
+    callers (the tests) pass 'cpu'."""
 
-    def __init__(self, cfg: EnvConfig, device="cpu", seed: int = 0):
+    def __init__(self, cfg: EnvConfig, device="cuda", seed: int = 0):
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
-                raise RuntimeError("NavEnv(device='cuda') needs a CUDA device")
+                raise RuntimeError(
+                    "NavEnv runs on a CUDA device by default and none is "
+                    "available; pass device='cpu' to run on the CPU")
             if cfg.fill_mode == "gather" or cfg.paint_mode == "xla":
                 raise NotImplementedError(
                     "on CUDA the fill and painter always run their kernels; "
@@ -337,13 +339,13 @@ class NavEnv:
         dev = self.device
         own_mask = polar_mod.own_mask_sorted(st.polar, st.own_slots,
                                              st.own_slots_ok)
-        n_beams = st.view_params.range_total
         # the painter's launch table: K5's 64-slot blocks for
-        # paint_mode='block', K3's slot rows otherwise
+        # paint_mode='block', K3's per-slot visit lists otherwise
         if cfg.paint_mode == "block":
-            layout = painter_mod.PaintBlocks.build(st.painter, n_beams)
+            layout = painter_mod.PaintBlocks.build(
+                st.painter, st.view_params.range_total)
         else:
-            layout = painter_mod.PaintRows.build(st.paint_t, n_beams)
+            layout = painter_mod.PaintSlots.build(st.painter)
         ang = torch.as_tensor(st.view_statics.laser.angles,
                               dtype=torch.float32, device=dev)
         self.tables = SensorTables(
@@ -663,8 +665,20 @@ class NavEnv:
             t.polar, vals, tuple(self.cfg.image_size))
         return sensor_maps, hits, angular
 
+    def _layers(self, state: WorldState):
+        """The raster layers of ``state``: obstacles, robots (K1) and ped
+        bodies and legs, each leg cloud shifted by its gait offset, then
+        posed by the ped."""
+        t, ct, p = self.tables, self.crowd, state.peds
+        return raster.build_layers(
+            state.obs_map, self.statics.resolution, state.robots.pose,
+            t.robot_points, t.robot_mask,
+            torch.cat([p.pos, p.yaw[:, None]], -1),
+            ct.body_points, ct.body_mask,
+            ct.left_points + p.leg_offset[:, 0:1, :], ct.left_mask,
+            ct.right_points + p.leg_offset[:, 1:2, :], ct.right_mask)
+
     def _observe(self, state: WorldState) -> Tuple[WorldState, Observation]:
-        st = self.statics
         cfg = self.cfg
         t = self.tables
         n = cfg.robot.total
@@ -672,13 +686,7 @@ class NavEnv:
         r = state.robots
         p = state.peds
         ct = self.crowd
-        # each leg cloud shifted by its gait offset, then posed by the ped
-        layers = raster.build_layers(
-            state.obs_map, st.resolution, r.pose, t.robot_points,
-            t.robot_mask, torch.cat([p.pos, p.yaw[:, None]], -1),
-            ct.body_points, ct.body_mask,
-            ct.left_points + p.leg_offset[:, 0:1, :], ct.left_mask,
-            ct.right_points + p.leg_offset[:, 1:2, :], ct.right_mask)
+        layers = self._layers(state)
         collision = raster.collision_codes(layers, r.collision, r.arrive)
         sensor_maps, hits, angular = self._sensor_pass(layers.packed, r.pose)
 

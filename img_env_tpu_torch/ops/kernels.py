@@ -37,10 +37,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "raster": ("img_env_raster_robots", (_P, _P, _I, _I, _I, _I, _P, _P)),
     "fill": ("img_env_fill_sorted",
-             (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
-              _P, _P, _P, _P)),
-    "paint": ("img_env_paint_rows",
-              (_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P)),
+             (_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
+              _P, _P)),
+    "paint": ("img_env_paint_slots", (_P, _P, _I, _I, _P, _P, _P, _I, _P)),
     "pedmap": ("img_env_ped_map",
                (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P)),
     "paint_block": ("img_env_paint_blocks",

@@ -15,13 +15,13 @@ A beam's write at static step s depends on two per-beam scalars, ``s_hit``
 and ``s_tail`` (``hit_steps``), and which beams visit which slot is static
 geometry — so the decode is integer compare/max work over static tables.
 
-``PainterStatics`` and ``PaintTStatics`` are host-side numpy copies of the
-JAX package's builders (painter.py, pallas_paint_t.py), held array-equal by
-the tests; their block and group layout was chosen for the TPU and is kept
-as is.  ``PaintRows`` flattens the PaintT groups and wide rows into the
-slot rows kernel K3 walks (one launch, CSR windows, slot-order output).
+``PainterStatics`` is a host-side numpy copy of the JAX package's builder
+(painter.py), held array-equal by the tests; its block layout was chosen
+for the TPU and is kept as is.  ``PaintSlots`` lists each slot's visiting
+beams in descending order, the layout kernel K3 walks (one launch,
+slot-order tiles, the first writing beam decides).
 ``PaintBlocks`` flattens the gen-1 layout (``paint_mode='block'``) into the
-64-slot blocks kernel K5 (csrc/paint_block.cu) walks the same way.
+64-slot blocks and beam windows kernel K5 (csrc/paint_block.cu) walks.
 ``paint_sorted`` — the dense decode over regions — is the plain-torch twin
 of both.
 """
@@ -234,183 +234,40 @@ class PainterStatics(NamedTuple):
         )
 
 
-G8 = 8             # slots per group (the sublane dimension)
-WIDE_W = 256       # window wider than this -> dense XLA wide row
-_SENT_A = np.int16(32000)   # invisible-sample sentinel for the hit-side
-                            # table: > any real threshold (s_hit <= 2**14)
-# width buckets: few classes (= few pallas_calls), cheap padding
-_WBUCKETS = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+class PaintSlots(NamedTuple):
+    """K3's layout: per painted slot, in slot order, the beams that visit
+    it in descending beam order, each as ``(beam << 16) | T`` with T the
+    visit's step+1 (CSR: slot j's visits are ``visits[off[j]:off[j+1]]``).
+    The visits are exactly the twin's: the regions' tables and the wide
+    rows.  Every slot of the painted space is one CSR entry, and no visit
+    lies past the last beam."""
 
-
-class PaintTClass(NamedTuple):
-    w: int
-    groups: int             # groups per grid tile
-    rbase: np.ndarray       # [ng_pad] int32 window start beam (8-aligned)
-    ta: np.ndarray          # [ng_pad, G8, w] int16 step+1, invisible=32000
-    tb: np.ndarray          # [ng_pad, G8, w] int16 step+1, invisible=0
-    slot0: np.ndarray       # [ng_pad] int32 first slot id (-1 = padding)
-
-
-class PaintTStatics(NamedTuple):
-    classes: Tuple[PaintTClass, ...]
-    r_pad: int
-    n_slots: int
-    inv_idx: np.ndarray     # [n_slots] int32 painted-row column per slot
-                            # (sentinel column = all-UNSEEN)
-    wide_slots: np.ndarray  # [ns] int32 (pst wide + ex-wide groups)
-    wide_sstep: np.ndarray  # [ns, R] int16
+    off: np.ndarray         # [n_slots + 1] int32 offsets into visits
+    visits: np.ndarray      # [nv] int32 (beam << 16) | (step + 1)
 
     @staticmethod
-    def build(pst: PainterStatics) -> "PaintTStatics":
-        R = pst.globstep.shape[0]
-        by_w = {}
-        ex_wide_slots, ex_wide_rows = [], []
+    def build(pst: PainterStatics) -> "PaintSlots":
+        n_beams = pst.globstep.shape[0]
+        slot, beam, step = [], [], []
         for reg in pst.regions:
-            if reg.W == 0:
-                continue
-            for b in range(reg.nb):
-                ss = reg.sstep[b]                       # [W, BM] int16
-                for g in range(_BM // G8):
-                    sub = ss[:, g * G8:(g + 1) * G8]
-                    rows = np.nonzero((sub > 0).any(axis=1))[0]
-                    if len(rows) == 0:
-                        continue
-                    slot0 = reg.lo + b * _BM + g * G8
-                    rb = int(reg.rbase[b] + rows.min()) // 8 * 8
-                    hi = int(reg.rbase[b] + rows.max())
-                    w_need = hi - rb + 1
-                    if w_need > WIDE_W:
-                        # dense per-slot rows over ALL beams (reg.W may be
-                        # lane-padded past R — those columns are always 0)
-                        dense = np.zeros((G8, R), np.int16)
-                        lo_r = int(reg.rbase[b])
-                        hi_r = min(lo_r + reg.W, R)
-                        dense[:, lo_r:hi_r] = sub.T[:, :hi_r - lo_r]
-                        ex_wide_slots.append(
-                            np.arange(slot0, slot0 + G8, dtype=np.int32))
-                        ex_wide_rows.append(dense)
-                        continue
-                    w = next(x for x in _WBUCKETS if x >= w_need)
-                    rb = min(rb, max(0, ((R + 127) // 128 * 128) - w))
-                    # ta/tb window: [G8, w] slice at rb (8-aligned)
-                    win = np.zeros((G8, w), np.int16)
-                    off = rb - int(reg.rbase[b])
-                    lo_w = max(off, 0)
-                    hi_w = min(off + w, reg.W)
-                    win[:, lo_w - off:hi_w - off] = sub[lo_w:hi_w].T
-                    by_w.setdefault(w, []).append((slot0, rb, win))
-        r_pad = (R + 127) // 128 * 128
-        classes = []
-        row_slots = []          # first-slot per painted output row group
-        for w in sorted(by_w):
-            items = by_w[w]
-            groups = max(1, min(32, 256 // w))
-            ng = len(items)
-            ng_pad = (ng + groups - 1) // groups * groups
-            rbase = np.zeros(ng_pad, np.int32)
-            ta = np.full((ng_pad, G8, w), _SENT_A, np.int16)
-            tb = np.zeros((ng_pad, G8, w), np.int16)
-            slot0 = np.full(ng_pad, -1, np.int32)
-            for i, (s0, rb, win) in enumerate(items):
-                rbase[i] = rb
-                ta[i] = np.where(win > 0, win, _SENT_A)
-                tb[i] = win
-                slot0[i] = s0
-            classes.append(PaintTClass(
-                w=int(w), groups=int(groups), rbase=rbase,
-                ta=ta, tb=tb, slot0=slot0))
-            row_slots.append(slot0)
-        # slot -> painted column map (class-major rows, G8 slots per row)
-        n_rows = sum(c.slot0.shape[0] for c in classes)
-        inv = np.full(pst.n_slots, n_rows * G8, np.int64)   # sentinel col
-        base = 0
-        for c in classes:
-            for i, s0 in enumerate(c.slot0):
-                if s0 >= 0:
-                    inv[s0:s0 + G8] = (base + i) * G8 + np.arange(G8)
-            base += c.slot0.shape[0]
-        # merged wide rows (pst wide slots + ex-wide groups); pst pads
-        # wide_sstep to >=1 row even when it has no wide slots — trim
-        ws = [np.asarray(pst.wide_slots, np.int32)]
-        wr = [np.asarray(pst.wide_sstep, np.int16)[:len(ws[0])]]
-        if ex_wide_slots:
-            ws.append(np.concatenate(ex_wide_slots))
-            wr.append(np.concatenate(ex_wide_rows, axis=0))
-        wide_slots = np.concatenate(ws)
-        wide_sstep = (np.concatenate(wr, axis=0) if wide_slots.size
-                      else np.zeros((0, R), np.int16))
-        return PaintTStatics(
-            classes=tuple(classes), r_pad=int(r_pad),
-            n_slots=int(pst.n_slots), inv_idx=inv.astype(np.int32),
-            wide_slots=wide_slots, wide_sstep=wide_sstep)
-
-
-class PaintRows(NamedTuple):
-    """K3's slot rows: each row is up to G8 output slots that share one
-    beam window [rb, rb + w), which ends at or before the last beam, and a
-    [w, G8] int16 table of visit step+1 (0 = not visited).  Every slot of
-    the painted space is in exactly one row: PaintT groups (their
-    pst-wide slots masked out), packs of G8 wide slots over all beams, and
-    packs of slots no beam visits (w = 0)."""
-
-    slots: np.ndarray       # [nr, G8] int32 slot id (-1 = none)
-    rb: np.ndarray          # [nr] int32 window start beam
-    w: np.ndarray           # [nr] int32 window width
-    off: np.ndarray         # [nr] int64 table offset, in G8-entry rows
-    table: np.ndarray       # [sum(w), G8] int16
-
-    @staticmethod
-    def build(kst: PaintTStatics, n_beams: int) -> "PaintRows":
-        covered = np.zeros(kst.n_slots, bool)
-        wide = np.zeros(kst.n_slots, bool)
-        wide[kst.wide_slots] = True
-        slots, rbs, ws, tabs = [], [], [], []
-        for cl in kst.classes:
-            for i, s0 in enumerate(cl.slot0):
-                if s0 < 0:
-                    continue
-                ids = np.arange(s0, s0 + G8, dtype=np.int32)
-                ids = np.where(wide[ids], -1, ids)
-                covered[ids[ids >= 0]] = True
-                slots.append(ids)
-                # the TPU windows may run into the lane padding past the
-                # last beam, which visits nothing; K3 reads the thresholds
-                # of every window beam, so the window stops at the last one
-                rb, tab = int(cl.rbase[i]), cl.tb[i].T      # [w, G8]
-                w = min(cl.w, n_beams - rb)
-                if tab[w:].any():
-                    raise ValueError("a painter window visits a beam past "
-                                     "the last")
-                rbs.append(rb)
-                ws.append(w)
-                tabs.append(tab[:w])
-
-        def packs(ids, rows):
-            for a in range(0, len(ids), G8):
-                row = np.full(G8, -1, np.int32)
-                row[: len(ids[a:a + G8])] = ids[a:a + G8]
-                slots.append(row)
-                rbs.append(0)
-                if rows is None:
-                    ws.append(0)
-                    tabs.append(np.zeros((0, G8), np.int16))
-                else:
-                    t = np.zeros((n_beams, G8), np.int16)
-                    t[:, : len(ids[a:a + G8])] = rows[a:a + G8].T
-                    ws.append(n_beams)
-                    tabs.append(t)
-
-        packs(np.asarray(kst.wide_slots, np.int32),
-              np.asarray(kst.wide_sstep, np.int16))
-        covered[kst.wide_slots] = True
-        packs(np.nonzero(~covered)[0].astype(np.int32), None)
-        w = np.asarray(ws, np.int32)
-        off = np.concatenate([[0], np.cumsum(w)[:-1]]).astype(np.int64)
-        table = (np.concatenate(tabs, axis=0).astype(np.int16)
-                 if tabs else np.zeros((0, G8), np.int16))
-        return PaintRows(slots=np.stack(slots).astype(np.int32),
-                         rb=np.asarray(rbs, np.int32), w=w, off=off,
-                         table=np.ascontiguousarray(table))
+            b, w, m = np.nonzero(reg.sstep)
+            slot.append(reg.lo + b * _BM + m)
+            beam.append(reg.rbase[b].astype(np.int64) + w)
+            step.append(reg.sstep[b, w, m])
+        ns = len(pst.wide_slots)
+        i, r = np.nonzero(pst.wide_sstep[:ns])
+        slot.append(pst.wide_slots[i])
+        beam.append(r)
+        step.append(pst.wide_sstep[i, r])
+        slot, beam, step = (np.concatenate(x).astype(np.int64)
+                            for x in (slot, beam, step))
+        if (beam >= n_beams).any():
+            raise ValueError("a painter visit lies past the last beam")
+        order = np.lexsort((-beam, slot))
+        counts = np.bincount(slot, minlength=pst.n_slots)
+        return PaintSlots(
+            off=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+            visits=((beam[order] << 16) | step[order]).astype(np.int32))
 
 
 class PaintBlocks(NamedTuple):
@@ -469,20 +326,23 @@ class PainterTables(NamedTuple):
     region_sstep: Tuple[torch.Tensor, ...]  # per region [nb, W, BM] int16
     wide_slots: torch.Tensor               # [ns] int64
     wide_sstep: torch.Tensor               # [ns, R] int16
-    rows: Optional[Tuple[torch.Tensor, ...]]     # K3's PaintRows fields
+    slots: Optional[Tuple[torch.Tensor, ...]]    # K3's PaintSlots fields
     blocks: Optional[Tuple[torch.Tensor, ...]]   # K5's PaintBlocks fields
 
 
 def make_painter_tables(pst: PainterStatics, layout, device) -> PainterTables:
-    """``layout``: PaintRows (kernel K3) or PaintBlocks (kernel K5); the
+    """``layout``: PaintSlots (kernel K3) or PaintBlocks (kernel K5); the
     other kernel's field is None."""
     t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                       device=device)
     i64, i32, i16 = torch.int64, torch.int32, torch.int16
     r = pst.globstep.shape[0]
-    launch = (t(layout.slots, i32), t(layout.rb, i32), t(layout.w, i32),
-              t(layout.off, i64), t(layout.table, i16))
     blocks = isinstance(layout, PaintBlocks)
+    if blocks:
+        launch = (t(layout.slots, i32), t(layout.rb, i32), t(layout.w, i32),
+                  t(layout.off, i64), t(layout.table, i16))
+    else:
+        launch = (t(layout.off, i32), t(layout.visits, i32))
     return PainterTables(
         globstep=t(pst.globstep, i64),
         nxt=t(pst.nxt_flat.reshape(r, pst.n_steps), i64),
@@ -490,7 +350,7 @@ def make_painter_tables(pst: PainterStatics, layout, device) -> PainterTables:
         region_sstep=tuple(t(g.sstep, i16) for g in pst.regions),
         wide_slots=t(pst.wide_slots, i64),
         wide_sstep=t(pst.wide_sstep, i16),
-        rows=None if blocks else launch,
+        slots=None if blocks else launch,
         blocks=launch if blocks else None)
 
 
@@ -573,38 +433,40 @@ def _paint_regions(pst, t, s_hit, s_tail):
     return vals
 
 
-def _transposed_thresholds(t: PainterTables, s_hit, s_tail, launch):
-    """s_hit / s_tail as int32 [R, N] rows, checked against the tables and
-    the kernel's ``launch`` table."""
+def _check_thresholds(t: PainterTables, s_hit, s_tail, launch):
     if (s_hit.shape != s_tail.shape or s_hit.dim() != 2
             or s_hit.shape[1] != t.globstep.shape[0]):
         raise ValueError("paint kernel takes s_hit/s_tail [N, R] with the "
                          "tables' R beams")
     if launch is None:
         raise ValueError("painter tables hold the other kernel's layout")
-    sh_t = s_hit.to(torch.int32).t().contiguous()
-    st_t = s_tail.to(torch.int32).t().contiguous()
-    kernels.check_cuda(sh_t, st_t, *launch)
-    return sh_t, st_t
 
 
-def paint_rows_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
-    """K3 on the card (csrc/paint.cu): [N, n_slots] f32 view values."""
-    sh_t, st_t = _transposed_thresholds(t, s_hit, s_tail, t.rows)
-    slots, rb, w, off, table = t.rows
-    n = s_hit.shape[0]
+def paint_slots_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
+    """K3 on the card (csrc/paint.cu): [N, n_slots] f32 view values from
+    s_hit / s_tail int16 [N, R] as ``hit_steps`` returns them."""
+    _check_thresholds(t, s_hit, s_tail, t.slots)
+    if s_hit.dtype != torch.int16 or s_tail.dtype != torch.int16:
+        raise ValueError("paint kernel takes int16 s_hit/s_tail")
+    off, visits = t.slots
+    if off.shape[0] != n_slots + 1 or n_slots % 4:
+        raise ValueError("paint kernel: the layout's slots differ, or "
+                         "n_slots is not a multiple of 4")
+    kernels.check_cuda(s_hit, s_tail, off, visits)
+    n, n_beams = s_hit.shape
     out = torch.empty((n, n_slots), dtype=torch.float32, device=s_hit.device)
-    kernels.launch("paint", sh_t.data_ptr(), st_t.data_ptr(), n,
-                   slots.data_ptr(), rb.data_ptr(), w.data_ptr(),
-                   off.data_ptr(), table.data_ptr(), slots.shape[0],
-                   out.data_ptr(), n_slots)
+    kernels.launch("paint", s_hit.data_ptr(), s_tail.data_ptr(), n, n_beams,
+                   off.data_ptr(), visits.data_ptr(), out.data_ptr(), n_slots)
     return out
 
 
 def paint_blocks_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
     """K5 on the card (csrc/paint_block.cu): [N, n_slots] f32 view
-    values."""
-    sh_t, st_t = _transposed_thresholds(t, s_hit, s_tail, t.blocks)
+    values; it reads the thresholds transposed, as int32 [R, N]."""
+    _check_thresholds(t, s_hit, s_tail, t.blocks)
+    sh_t = s_hit.to(torch.int32).t().contiguous()
+    st_t = s_tail.to(torch.int32).t().contiguous()
+    kernels.check_cuda(sh_t, st_t, *t.blocks)
     slots, rb, w, off, table = t.blocks
     n, n_beams = s_hit.shape
     out = torch.empty((n, n_slots), dtype=torch.float32, device=s_hit.device)
@@ -620,7 +482,7 @@ def paint(pst: PainterStatics, t: PainterTables, s_hit, s_tail):
     hold PaintBlocks (``paint_mode='block'``), K3 otherwise; the twin for
     CPU tensors."""
     if s_hit.is_cuda:
-        kernel = (paint_rows_kernel if t.blocks is None
+        kernel = (paint_slots_kernel if t.blocks is None
                   else paint_blocks_kernel)
         return kernel(t, s_hit, s_tail, pst.n_slots)
     return paint_sorted(pst, t, s_hit, s_tail)

@@ -383,12 +383,37 @@ def fill_sorted_twin(packed, cos, sin, px, py, pix_x, pix_y, n_fill: int,
     return out
 
 
+def bitmap_words(w: int) -> int:
+    """int32 words per map row of K2's bitmap: 32 cells a word, rows
+    padded to 16 bytes."""
+    return (w + 127) // 128 * 4
+
+
+def occupancy_bits_twin(packed):
+    """K2's pre-pass in plain torch: [S, h, bitmap_words(w)] int32 bitmap
+    of the cells that are occupied for some robot (static or holding any
+    robot); bit k of word q of a row is cell q * 32 + k, padding bits 0.
+    ``decode_packed`` equals this bit with the cells that robot ``rid1``
+    alone covers cleared: no static bit, one robot, id ``rid1``."""
+    maps = packed if packed.dim() == 3 else packed[None]
+    s, h, w = maps.shape
+    words = bitmap_words(w)
+    occ = ((maps & 1) | ((maps >> 1) & 3)) != 0
+    occ = torch.nn.functional.pad(occ, (0, words * 32 - w))
+    shifts = torch.arange(32, dtype=torch.int64, device=maps.device)
+    bits = (occ.reshape(s, h, words, 32).to(torch.int64) << shifts).sum(-1)
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
+
+
 def fill_sorted_kernel(packed, cos, sin, px, py, pix_x, pix_y, n_fill: int,
                        resolution: float, nps: Optional[int] = None):
-    """K2 on the card (csrc/fill.cu); same contract as the twin."""
+    """K2 on the card (csrc/fill.cu): the occupancy-bitmap pre-pass into a
+    scratch [S, h, bitmap_words(w)] int32 buffer, then the fill; same
+    contract as the twin."""
     maps = packed if packed.dim() == 3 else packed[None]
     n = cos.shape[0]
     nps = nps or n
+    scenes, h, w = maps.shape
     if maps.dtype != torch.int32:
         raise ValueError("fill kernel takes the int32 packed map")
     for x in (cos, sin, px, py, pix_x, pix_y):
@@ -398,15 +423,21 @@ def fill_sorted_kernel(packed, cos, sin, px, py, pix_x, pix_y, n_fill: int,
         raise ValueError("fill kernel takes [N] pose terms")
     if pix_x.shape != pix_y.shape or not 0 <= n_fill <= pix_x.shape[0]:
         raise ValueError("fill kernel: bad slot coordinates")
-    if n % nps or maps.shape[0] != n // nps or nps >= 4096:
+    if n % nps or scenes != n // nps or nps >= 4096:
         raise ValueError("fill kernel: robots must tile the scenes, and "
                          "in-scene ids stay <= 4095")
-    kernels.check_cuda(maps, cos, sin, px, py, pix_x, pix_y)
     n_slots = pix_x.shape[0]
+    if n_fill % 8 or n_slots % 8 or pix_x.data_ptr() % 16 \
+            or pix_y.data_ptr() % 16:
+        raise ValueError("fill kernel: slot counts must be multiples of 8 "
+                         "and the coordinates 16-byte aligned")
+    bits = torch.empty((scenes, h, bitmap_words(w)), dtype=torch.int32,
+                       device=cos.device)
+    kernels.check_cuda(maps, bits, cos, sin, px, py, pix_x, pix_y)
     out = torch.empty((n, n_slots), dtype=torch.bool, device=cos.device)
-    kernels.launch("fill", maps.data_ptr(), maps.shape[1], maps.shape[2],
+    kernels.launch("fill", maps.data_ptr(), bits.data_ptr(), scenes, h, w,
                    cos.data_ptr(), sin.data_ptr(), px.data_ptr(),
-                   py.data_ptr(), n, nps, n_fill, n_slots,
+                   py.data_ptr(), nps, n_fill, n_slots,
                    float(np.float32(1.0) / np.float32(resolution)),
                    pix_x.data_ptr(), pix_y.data_ptr(), out.data_ptr())
     return out

@@ -1,7 +1,9 @@
 """The CUDA kernels vs their plain-torch twins on the card, at odd small
-shapes: robot counts off the warp width, robots on the map edge; ped
-counts off the shared-memory tile, peds on the +-3 m window edge and
-exact range ties (K4); the gen-1 block painter with wide slots (K5).
+shapes: robot counts off the warp width, robots on the map edge; the fill
+across scenes and with a bitmap too large for shared memory (K2); the
+painter's dense near-sensor slots on forced thresholds (K3); ped counts
+off the shared-memory tile, peds on the +-3 m window edge and exact range
+ties (K4); the gen-1 block painter with wide slots (K5).
 
 These need an NVIDIA GPU and nvcc and skip without them.  On the machine
 with the card (which has no JAX) run them without the JAX test conftest:
@@ -76,10 +78,8 @@ def test_fill_and_paint_kernels_match_twins(dev, n):
     poses, static, pts, msk = _scene(n, 100 + n, dev)
     ps = polar.PolarStatics.build(VP, n_chunks=8)
     pst = painter.PainterStatics.build(ps)
-    rows = painter.PaintRows.build(painter.PaintTStatics.build(pst),
-                                   VP.range_total)
     tp = polar.make_tables(ps, np.zeros((n, ps.n_slots), bool), dev)
-    tt = painter.make_painter_tables(pst, rows, dev)
+    tt = painter.make_painter_tables(pst, painter.PaintSlots.build(pst), dev)
     e = torch.zeros((0, 1, 2), device=dev)
     eb = torch.zeros((0, 1), dtype=torch.bool, device=dev)
     layers = raster.build_layers(static, RES, poses, pts, msk,
@@ -93,7 +93,66 @@ def test_fill_and_paint_kernels_match_twins(dev, n):
     assert torch.equal(occ, polar.fill_sorted_twin(*args))
     _, _, aux = polar.raycast_batched(ps, tp, occ)
     s_hit, s_tail = painter.hit_steps(pst, tt, *aux)
-    got = painter.paint_rows_kernel(tt, s_hit, s_tail, pst.n_slots)
+    got = painter.paint_slots_kernel(tt, s_hit, s_tail, pst.n_slots)
+    assert torch.equal(got, painter.paint_sorted(pst, tt, s_hit, s_tail))
+
+
+@pytest.mark.parametrize("n,h,w,nps", [(6, 150, 150, 3), (5, 1700, 1100, 5),
+                                       (8, 1700, 1100, 2)])
+def test_fill_kernel_scenes_and_large_maps(dev, n, h, w, nps):
+    """Random packed maps (static cells, overlaps, single-robot cells of
+    every id) stacked per scene, robot i reading scene i // nps; at
+    1700 x 1100 the bitmap (1700 x 36 words, 245 KB) exceeds a block's
+    shared memory and the fill reads it through L1."""
+    rng = np.random.default_rng(h + nps)
+    scenes = n // nps
+    u = rng.random((scenes, h, w))
+    v = np.where(u < 0.05, 1, 0)
+    v = np.where((u >= 0.05) & (u < 0.08),
+                 (rng.integers(2, 4, u.shape) << 1)
+                 | (rng.integers(1, 4096, u.shape) << 3), v)
+    v = np.where((u >= 0.08) & (u < 0.2),
+                 2 | (rng.integers(1, nps + 1, u.shape) << 3), v)
+    packed = torch.as_tensor(v.astype(np.int32), device=dev)
+    ps = polar.PolarStatics.build(VP, n_chunks=8)
+    tp = polar.make_tables(ps, np.zeros((n, ps.n_slots), bool), dev)
+    poses = torch.as_tensor(np.column_stack([
+        rng.uniform(0, h * RES, n), rng.uniform(0, w * RES, n),
+        rng.uniform(-3.1, 3.1, n)]).astype(np.float32), device=dev)
+    poses[0, :2] = 0.0                                 # on the map corner
+    cos, sin = torch.cos(poses[:, 2]), torch.sin(poses[:, 2])
+    args = (packed, cos, sin, poses[:, 0].contiguous(),
+            poses[:, 1].contiguous(), tp.pix_x, tp.pix_y, ps.n_fill_slots,
+            RES, nps)
+    got = polar.fill_sorted_kernel(*args)
+    want = polar.fill_sorted_twin(*args)
+    assert torch.equal(got, want) and bool(want.any())
+
+
+@pytest.mark.parametrize("kind", ["no_hit", "step0", "last", "mixed"])
+def test_paint_kernel_forced_thresholds(dev, kind):
+    """K3 at 360 beams (dense near-sensor slots) on forced thresholds: no
+    hit, a hit at every beam's first step, at its last step, and a mix."""
+    vp = VP._replace(range_total=360)
+    pst = painter.PainterStatics.build(polar.PolarStatics.build(vp,
+                                                                n_chunks=8))
+    tt = painter.make_painter_tables(pst, painter.PaintSlots.build(pst), dev)
+    n, r, s = 37, 360, pst.n_steps
+    rng = np.random.default_rng(7)
+    if kind == "no_hit":
+        s_hit = torch.full((n, r), 2 ** 14, device=dev)
+    elif kind == "mixed":
+        s_hit = torch.as_tensor(rng.integers(0, s, (n, r)), device=dev)
+    else:
+        s_hit = torch.full((n, r), 0 if kind == "step0" else s - 1,
+                           device=dev)
+    s_tail = torch.gather(tt.nxt[None].expand(n, r, s), 2,
+                          s_hit.clamp(0, s - 1)[..., None])[..., 0]
+    s_tail = torch.where(s_hit == 2 ** 14, s_hit, s_tail)
+    if kind == "mixed":
+        s_hit[:, ::3], s_tail[:, ::3] = 2 ** 14, 2 ** 14
+    s_hit, s_tail = s_hit.to(torch.int16), s_tail.to(torch.int16)
+    got = painter.paint_slots_kernel(tt, s_hit, s_tail, pst.n_slots)
     assert torch.equal(got, painter.paint_sorted(pst, tt, s_hit, s_tail))
 
 

@@ -101,3 +101,85 @@ def test_fill_self_exclusion_and_scenes(statics):
         assert not row[hit(own)].any()
         if hit(other).any():
             assert row[hit(other) & ps_t.gates_sorted].all()
+
+
+def _own_cell(v, rid1):
+    """Cells that robot ``rid1`` alone covers: no static bit, one robot,
+    id ``rid1`` (csrc/fill.cu's own())."""
+    return ((v & 1) == 0) & (((v >> 1) & 3) == 1) & (((v >> 3) & 0xFFF) == rid1)
+
+
+def _random_packed(rng, scenes, h, w, nps):
+    """Random id-packed maps [S, h, w]: static cells, overlaps (count 2-3,
+    an id sum in the id field), and single-robot cells of every in-scene
+    id, some around each robot's own pose."""
+    v = np.zeros((scenes, h, w), np.int64)
+    u = rng.random((scenes, h, w))
+    v[u < 0.05] |= 1                                   # static
+    over = (u >= 0.05) & (u < 0.08)
+    v[over] |= rng.integers(2, 4, over.sum()) << 1     # 2-3 robots
+    v[over] |= rng.integers(1, 4096, over.sum()) << 3
+    single = (u >= 0.08) & (u < 0.15)
+    v[single] |= (1 << 1) | (rng.integers(1, nps + 1, single.sum()) << 3)
+    both = (u >= 0.15) & (u < 0.16)                    # static + a robot
+    v[both] |= 1 | (1 << 1) | (rng.integers(1, nps + 1, both.sum()) << 3)
+    return v.astype(np.int32)
+
+
+@pytest.mark.parametrize("nps", [6, 3, 2])
+def test_fill_bitmap_prepass_and_identity(rng, statics, nps):
+    """K2's path: the pre-pass bitmap twin holds anyocc of every cell (the
+    row padded to whole words), the identity decode = anyocc & ~own holds
+    for every value and robot id, and the fill through the bitmap -- a bit
+    test, then the packed map only where the bit is set -- equals the
+    twin, robot i reading scene i // nps (nps = N and nps < N).  Rows
+    are padded to 4 words (16 bytes), the padding bits 0."""
+    from img_env_tpu_torch.ops.raster import div_const, round_half_away
+
+    _, ps_t, t = statics
+    n, h, w = 6, 90, 75                   # w is not a multiple of 32
+    scenes = n // nps
+    packed = _random_packed(rng, scenes, h, w, nps)
+    poses = np.column_stack([rng.uniform(0.2, 4.3, n), rng.uniform(0.2, 3.6, n),
+                             rng.uniform(-3.1, 3.1, n)]).astype(np.float32)
+    poses[0, :2] = [0.05, 3.7]            # views leave the map
+    for i in range(n):                    # the robot's own cells, in view
+        m0, n0 = (np.round(poses[i, :2] / RES).astype(int)
+                  + [[0, 0], [1, 0], [0, 1], [2, 2]]).T
+        ok = (m0 < h) & (n0 < w)
+        packed[i // nps, m0[ok], n0[ok]] = (1 << 1) | ((i % nps + 1) << 3)
+    pm = torch.as_tensor(packed)
+
+    bits = polar.occupancy_bits_twin(pm)
+    words = polar.bitmap_words(w)
+    assert words == 4 and bits.shape == (scenes, h, words)
+    assert bits.dtype == torch.int32
+    col = torch.arange(words * 32)
+    bit = (bits[..., col // 32] >> (col % 32)) & 1
+    anyocc = ((pm & 1) | ((pm >> 1) & 3)) != 0
+    assert torch.equal(bit[..., :w].bool(), anyocc)
+    assert not bit[..., w:].any()
+    for rid in range(1, nps + 1):
+        assert torch.equal(polar.decode_packed(pm, rid),
+                           anyocc & ~_own_cell(pm, rid))
+
+    p = torch.as_tensor(poses)
+    cos, sin = torch.cos(p[:, 2]), torch.sin(p[:, 2])
+    nf = ps_t.n_fill_slots
+    want = polar.fill_sorted_twin(pm, cos, sin, p[:, 0].contiguous(),
+                                  p[:, 1].contiguous(), t.pix_x, t.pix_y,
+                                  nf, RES, nps=nps)
+    bx, by = t.pix_x[:nf][None], t.pix_y[:nf][None]
+    wx = cos[:, None] * bx - sin[:, None] * by + p[:, 0:1]
+    wy = sin[:, None] * bx + cos[:, None] * by + p[:, 1:2]
+    cm = round_half_away(div_const(wx, RES)).to(torch.int64)
+    cn = round_half_away(div_const(wy, RES)).to(torch.int64)
+    inside = (cm >= 0) & (cm < h) & (cn >= 0) & (cn < w)
+    cm, cn = cm.clamp(0, h - 1), cn.clamp(0, w - 1)
+    scene = (torch.arange(n) // nps)[:, None]
+    set_ = ((bits[scene, cm, cn // 32] >> (cn % 32)) & 1).bool()
+    rid = (torch.arange(n) % nps + 1)[:, None]
+    own = _own_cell(pm[scene, cm, cn], rid)
+    got = inside & set_ & ~own
+    assert torch.equal(got, want[:, :nf]) and not want[:, nf:].any()
+    assert got.any() and (set_ & own & inside).any()   # own cells seen

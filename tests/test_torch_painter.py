@@ -3,9 +3,10 @@ and the 48x48 sensor maps of the torch port vs the JAX package.
 
 JAX runs jitted in float32 from the same occupancy, as in production.  K3's
 twin must equal both the JAX dense decode (painter.paint_sorted) and the
-transposed Pallas kernel in interpret mode.  A numpy walk of K3's slot rows
-(PaintRows, the exact loop csrc/paint.cu runs per robot and row) holds the
-kernel's table layout to the twin on the CPU; a walk of K5's 64-slot blocks
+transposed Pallas kernel in interpret mode.  A numpy walk of K3's per-slot
+visit lists (PaintSlots, the exact loop csrc/paint.cu runs per robot and
+slot over its slot-order tiles) holds the kernel's layout to the twin on
+the CPU, on real and forced thresholds; a walk of K5's 64-slot blocks
 (PaintBlocks, csrc/paint_block.cu's loop) does the same for the gen-1
 layout, which must also equal the gen-1 Pallas kernel in interpret mode.
 """
@@ -34,13 +35,12 @@ def statics():
     pst_j = jpainter.PainterStatics.build(ps_j)
     ps_t = polar.PolarStatics.build(view.ViewParams(*VP), n_chunks=8)
     pst_t = painter.PainterStatics.build(ps_t)
-    kst_t = painter.PaintTStatics.build(pst_t)
-    rows = painter.PaintRows.build(kst_t, VP.range_total)
+    slots = painter.PaintSlots.build(pst_t)
     rng = np.random.default_rng(1)
     own = rng.random((5, ps_t.n_slots)) < 0.05
-    return (ps_j, pst_j, JPaintT.build(pst_j), ps_t, pst_t, rows,
+    return (ps_j, pst_j, JPaintT.build(pst_j), ps_t, pst_t, slots,
             polar.make_tables(ps_t, own, "cpu"),
-            painter.make_painter_tables(pst_t, rows, "cpu"), own)
+            painter.make_painter_tables(pst_t, slots, "cpu"), own)
 
 
 def _occupancy(rng, ps_j):
@@ -54,33 +54,45 @@ def _occupancy(rng, ps_j):
     return np.array(occ)
 
 
-def _emulate_rows(rows, s_hit, s_tail, n_slots):
-    """csrc/paint.cu's loop in numpy: per row, walk the beam window, max
-    the key (beam << 2) | code per slot, decode."""
-    n = s_hit.shape[0]
+TILE, SPT = 1024, 4          # csrc/paint.cu: slots per block and thread
+
+
+def _tile_slots(n_slots):
+    """The slots csrc/paint.cu's grid writes, block by block and thread by
+    thread (j0 = tile * TILE + thread * SPT, SPT slots each)."""
+    tiles = (n_slots + TILE - 1) // TILE
+    j0 = (np.arange(tiles)[:, None] * TILE
+          + np.arange(TILE // SPT)[None, :] * SPT).reshape(-1)
+    j0 = j0[j0 < n_slots]
+    return (j0[:, None] + np.arange(SPT)[None, :]).reshape(-1)
+
+
+def _emulate_slots(slots, s_hit, s_tail, n_slots):
+    """csrc/paint.cu's loop in numpy: per robot and slot, walk the slot's
+    visits in layout order and take the first that writes (code 2 -> 255,
+    3 -> 0, 1 -> 200); no writer -> 200."""
     sh, st = s_hit.astype(np.int64), s_tail.astype(np.int64)
-    out = np.full((n, n_slots), np.nan, np.float32)
-    for r in range(rows.slots.shape[0]):
-        acc = np.full((n, painter.G8), -1, np.int64)
-        for wp in range(rows.w[r]):
-            beam = rows.rb[r] + wp
-            T = rows.table[rows.off[r] + wp].astype(np.int64)[None, :]
-            h, t = sh[:, beam:beam + 1], st[:, beam:beam + 1]
-            code = np.where(T <= 0, 0, np.where(
-                T <= h, 2, np.where(T == h + 1, 3, np.where(T > t, 1, 0))))
-            acc = np.where(code > 0, np.maximum(acc, (beam << 2) | code), acc)
-        c = acc & 3
-        val = np.where(acc < 0, 200.0, np.where(
-            c == 2, 255.0, np.where(c == 3, 0.0, 200.0)))
-        for g, slot in enumerate(rows.slots[r]):
-            if slot >= 0:
-                out[:, slot] = val[:, g]
+    beam = slots.visits.astype(np.int64) >> 16
+    T = (slots.visits & 0xFFFF).astype(np.int64)[None]
+    h, t = sh[:, beam], st[:, beam]
+    val = np.where(T <= h, 255.0, np.where(T == h + 1, 0.0, np.where(
+        T > t, 200.0, np.nan)))
+    out = np.full((sh.shape[0], n_slots), np.nan, np.float32)
+    for j in _tile_slots(n_slots):
+        assert np.isnan(out[0, j]), "slot written twice"
+        if slots.off[j] == slots.off[j + 1]:
+            out[:, j] = 200.0             # no visitor: no walk
+            continue
+        writes = ~np.isnan(val[:, slots.off[j]:slots.off[j + 1]])
+        first = slots.off[j] + writes.argmax(1)
+        out[:, j] = np.where(writes.any(1), val[np.arange(len(first)), first],
+                             200.0)
     return out
 
 
 @pytest.mark.parametrize("trial", range(2))
 def test_sensor_chain_matches_jax(rng, statics, trial):
-    (ps_j, pst_j, kst_j, ps_t, pst_t, rows, t_polar, t_paint,
+    (ps_j, pst_j, kst_j, ps_t, pst_t, slots, t_polar, t_paint,
      own) = statics
     occ = _occupancy(rng, ps_j)
     with jax.enable_x64(False):
@@ -110,7 +122,7 @@ def test_sensor_chain_matches_jax(rng, statics, trial):
     np.testing.assert_array_equal(vals.numpy(), np.asarray(vals_j))
     np.testing.assert_array_equal(vals.numpy(), np.asarray(vals_k))
     np.testing.assert_array_equal(
-        _emulate_rows(rows, s_hit.numpy(), s_tail.numpy(), pst_t.n_slots),
+        _emulate_slots(slots, s_hit.numpy(), s_tail.numpy(), pst_t.n_slots),
         vals.numpy())
 
     stamped = polar.stamp_self_mask(vals, t_polar.own_mask)
@@ -121,7 +133,7 @@ def test_sensor_chain_matches_jax(rng, statics, trial):
 
 def test_paint_twin_robot_chunks(statics):
     """The chunked twin is chunk-size independent."""
-    *_, pst_t, rows, _, t_paint, _ = statics
+    *_, pst_t, slots, _, t_paint, _ = statics
     rng = np.random.default_rng(3)
     r = VP.range_total
     s_hit = torch.as_tensor(rng.integers(0, 40, (11, r)), dtype=torch.int16)
@@ -132,7 +144,7 @@ def test_paint_twin_robot_chunks(statics):
     b = painter.paint_sorted(pst_t, t_paint, s_hit, s_tail, robot_chunk=64)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
     np.testing.assert_array_equal(
-        _emulate_rows(rows, s_hit.numpy(), s_tail.numpy(), pst_t.n_slots),
+        _emulate_slots(slots, s_hit.numpy(), s_tail.numpy(), pst_t.n_slots),
         a.numpy())
 
 
@@ -182,7 +194,7 @@ def test_paint_blocks_layout_matches_twin_and_gen1_kernel(rng, beams):
     t_polar = polar.make_tables(ps_t, np.zeros((5, ps_t.n_slots), bool),
                                 "cpu")
     tb = painter.make_painter_tables(pst_t, blocks, "cpu")
-    assert tb.blocks is not None and tb.rows is None
+    assert tb.blocks is not None and tb.slots is None
     occ = _occupancy(rng, ps_j)
     _, _, aux = polar.raycast_batched(ps_t, t_polar, torch.as_tensor(occ))
     s_hit, s_tail = painter.hit_steps(pst_t, tb, *aux)
@@ -199,12 +211,13 @@ def test_paint_blocks_layout_matches_twin_and_gen1_kernel(rng, beams):
 
 
 def test_paint_rows_stay_within_the_beams(rng):
-    """K3 reads the thresholds of every beam of a row's window, so no
-    window may run past the last beam (the TPU layout pads the beams to a
-    multiple of 128: at 96 beams one window used to end at beam 104, and
-    at 960 beams the kernel read up to 64 rows past the end of its
-    threshold buffers, an illegal address when that buffer ended a mapped
-    segment).  The trimmed rows still paint what the twin paints."""
+    """K3 reads the thresholds of every beam that visits a slot, so no
+    visit may lie past the last beam (the TPU layout pads the beams to a
+    multiple of 128, and an earlier slot-row kernel read up to 64 rows
+    past the end of its threshold buffers, an illegal address when that
+    buffer ended a mapped segment).  Every visit of the env's layout lies
+    within the beams and still paints what the twin paints; a layout whose
+    visits pass the tables' last beam is refused."""
     from img_env_tpu_torch.config import EnvConfig
     from img_env_tpu_torch.env.nav_env import NavEnv
 
@@ -213,15 +226,100 @@ def test_paint_rows_stay_within_the_beams(rng):
     env = NavEnv(EnvConfig.from_dict(small_cfg_dict()), "cpu")
     st = env.statics
     beams = st.view_params.range_total
-    rows = painter.PaintRows.build(st.paint_t, beams)
-    assert (rows.rb + rows.w <= beams).all()
-    assert rows.table.shape == (int(rows.w.sum()), painter.G8)
+    slots = painter.PaintSlots.build(st.painter)
+    assert ((slots.visits >> 16) < beams).all()
+    off, visits = env.tables.painter.slots
+    assert torch.equal(off, torch.as_tensor(slots.off))
+    assert torch.equal(visits, torch.as_tensor(slots.visits))
     n = 3
-    s_hit = torch.as_tensor(rng.integers(0, 40, (n, beams)), dtype=torch.int32)
+    s_hit = torch.as_tensor(rng.integers(0, 40, (n, beams)), dtype=torch.int16)
     s_tail = s_hit + torch.as_tensor(rng.integers(0, 4, (n, beams)),
-                                     dtype=torch.int32)
-    tb = painter.make_painter_tables(st.painter, rows, "cpu")
-    want = painter.paint(st.painter, tb, s_hit, s_tail)
+                                     dtype=torch.int16)
+    want = painter.paint(st.painter, env.tables.painter, s_hit, s_tail)
     np.testing.assert_array_equal(
-        _emulate_rows(rows, s_hit.numpy(), s_tail.numpy(),
-                      st.painter.n_slots), want.numpy())
+        _emulate_slots(slots, s_hit.numpy(), s_tail.numpy(),
+                       st.painter.n_slots), want.numpy())
+    short = st.painter._replace(globstep=st.painter.globstep[:beams - 8])
+    with pytest.raises(ValueError, match="past the last beam"):
+        painter.PaintSlots.build(short)
+
+
+def _twin_visits(pst):
+    """(slot, beam, T) of every visit in the twin's tables: the regions'
+    [nb, W, BM] windows and the wide rows over all beams."""
+    out = set()
+    for reg in pst.regions:
+        for b, w, m in zip(*np.nonzero(reg.sstep)):
+            out.add((reg.lo + b * 64 + m, int(reg.rbase[b]) + w,
+                     int(reg.sstep[b, w, m])))
+    for i, r in zip(*np.nonzero(pst.wide_sstep[:len(pst.wide_slots)])):
+        out.add((int(pst.wide_slots[i]), r, int(pst.wide_sstep[i, r])))
+    return out
+
+
+@pytest.mark.parametrize("beams", [32, 360])
+def test_paint_slots_layout_covers_every_slot_once(beams):
+    """K3's layout lists every slot of the painted space once (CSR offsets
+    over all P' slots), each slot's visitors in strictly descending beam
+    order, no visit past the last beam, and exactly the twin's visits: the
+    regions' windows and, at 360 beams, the dense near-sensor rows over
+    all beams.  The kernel's slot-order tiles (1024 slots a block, 4 a
+    thread) write every slot once."""
+    vp = view.ViewParams(*VP._replace(range_total=beams))
+    pst = painter.PainterStatics.build(polar.PolarStatics.build(vp,
+                                                                n_chunks=8))
+    assert (len(pst.wide_slots) > 0) == (beams > 256)
+    slots = painter.PaintSlots.build(pst)
+    off, visits = slots.off.astype(np.int64), slots.visits.astype(np.int64)
+    assert off.shape == (pst.n_slots + 1,) and off[0] == 0
+    assert off[-1] == len(visits) and (np.diff(off) >= 0).all()
+    beam, T = visits >> 16, visits & 0xFFFF
+    assert (beam < beams).all() and (T > 0).all()
+    slot = np.repeat(np.arange(pst.n_slots), np.diff(off))
+    same = slot[1:] == slot[:-1]
+    assert (beam[1:][same] < beam[:-1][same]).all()
+    assert set(zip(slot.tolist(), beam.tolist(), T.tolist())) == \
+        _twin_visits(pst)
+    if beams > 256:
+        dense = np.diff(off)[pst.wide_slots]
+        assert dense.max() > 256          # the near-sensor rows
+    tiles = _tile_slots(pst.n_slots)
+    assert np.array_equal(np.sort(tiles), np.arange(pst.n_slots))
+
+
+def _forced(kind, pst, t, n, rng):
+    """Thresholds [n, R] int16: 'no_hit' (the 2**14 sentinel), 'step0'
+    (every beam hits at its first step), 'last' (at its last step), or
+    'mixed' (random hits, every third beam missing)."""
+    r, s = pst.globstep.shape[0], pst.n_steps
+    big = torch.full((n, r), 2 ** 14, dtype=torch.int64)
+    if kind == "no_hit":
+        return big.to(torch.int16), big.to(torch.int16)
+    if kind == "mixed":
+        s_hit = torch.as_tensor(rng.integers(0, s, (n, r)))
+    else:
+        s_hit = torch.full((n, r), 0 if kind == "step0" else s - 1)
+    s_tail = torch.gather(t.nxt[None].expand(n, r, s), 2,
+                          s_hit[..., None])[..., 0]
+    if kind == "mixed":
+        s_hit[:, ::3], s_tail[:, ::3] = 2 ** 14, 2 ** 14
+    return s_hit.to(torch.int16), s_tail.to(torch.int16)
+
+
+@pytest.mark.parametrize("kind", ["no_hit", "step0", "last", "mixed"])
+def test_paint_slots_decode_forced_thresholds(rng, kind):
+    """The slot-order tiles and the dense near-sensor slots (360 beams)
+    decode to the twin's output on forced thresholds: no hit, a hit at
+    every beam's first step, at its last step, and a random mix."""
+    vp = view.ViewParams(*VP._replace(range_total=360))
+    pst = painter.PainterStatics.build(polar.PolarStatics.build(vp,
+                                                                n_chunks=8))
+    slots = painter.PaintSlots.build(pst)
+    t = painter.make_painter_tables(pst, slots, "cpu")
+    s_hit, s_tail = _forced(kind, pst, t, 5, rng)
+    want = painter.paint(pst, t, s_hit, s_tail)
+    got = _emulate_slots(slots, s_hit.numpy(), s_tail.numpy(), pst.n_slots)
+    np.testing.assert_array_equal(got, want.numpy())
+    if kind == "no_hit":       # every visited slot is painted 255
+        visited = np.diff(slots.off) > 0
+        assert (got[:, visited] == 255).all() and (got[:, ~visited] == 200).all()

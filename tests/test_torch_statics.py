@@ -97,9 +97,15 @@ def test_grey_and_resize_match_cv2_on_random_images(tmp_path):
 
 
 def test_config_fields_equal():
+    """Every field equal but the map directory: the port reads its own
+    copy of the PNGs (tests/test_torch_packaging.py holds them equal)."""
     d = small_cfg_dict()
     a = dataclasses.asdict(JaxEnvConfig.from_dict(d))
     b = dataclasses.asdict(EnvConfig.from_dict(d))
+    assert os.path.samefile(a.pop("map_dir"), os.path.join(
+        os.path.dirname(jmaps.__file__), "..", "maps"))
+    assert os.path.samefile(b.pop("map_dir"), os.path.join(
+        os.path.dirname(polar.__file__), "..", "maps"))
     assert a == b
     assert JaxEnvConfig.from_dict(d).n_substeps == \
         EnvConfig.from_dict(d).n_substeps
@@ -144,14 +150,25 @@ def test_polar_statics(kernel_statics):
 def test_painter_and_kernel_tables(kernel_statics):
     _, _, _, pst_j, pst_t = kernel_statics
     _assert_tree_equal(pst_j, pst_t)
+    # K3's layout: one CSR entry per painted slot, holding exactly the
+    # visits of the JAX package's TPU painter tables (its width classes)
     kst_j = jpaint_t.PaintTStatics.build(pst_j)
-    kst_t = painter.PaintTStatics.build(pst_t)
-    _assert_tree_equal(kst_j, kst_t)
-    # K3's rows cover every painted slot exactly once
-    rows = painter.PaintRows.build(kst_t, VP.range_total)
-    ids = rows.slots[rows.slots >= 0]
-    assert np.array_equal(np.sort(ids), np.arange(pst_t.n_slots))
-    assert rows.table.shape == (int(rows.w.sum()), painter.G8)
+    slots = painter.PaintSlots.build(pst_t)
+    assert slots.off.shape == (pst_t.n_slots + 1,)
+    got = set()
+    for s in range(pst_t.n_slots):
+        for v in slots.visits[slots.off[s]:slots.off[s + 1]].tolist():
+            got.add((s, v >> 16, v & 0xFFFF))
+    want = set()
+    for cl in kst_j.classes:
+        for i, s0 in enumerate(np.asarray(cl.slot0)):
+            tb = np.asarray(cl.tb[i])                      # [G8, w]
+            for g, w in zip(*np.nonzero(tb)):
+                want.add((int(s0) + g, int(cl.rbase[i]) + w, int(tb[g, w])))
+    ws = np.asarray(kst_j.wide_slots)
+    for i, r in zip(*np.nonzero(np.asarray(kst_j.wide_sstep))):
+        want.add((int(ws[i]), r, int(kst_j.wide_sstep[i, r])))
+    assert got == want
 
 
 def test_env_statics_match(tmp_path):

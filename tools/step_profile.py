@@ -1,0 +1,102 @@
+"""Device time per control step at bench200, bench200ped and bench200ervo,
+on one NVIDIA GPU, for the tree at ``--tree``.
+
+    python3 tools/step_profile.py --tree DIR [--steps 5] [--out FILE]
+
+Imports ``img_env_tpu_torch`` and ``chip_smoke`` from ``DIR``, so two
+checkouts (e.g. a commit and its parent unpacked with ``git archive``) can
+be compared in one call, in turns.  The control steps are the tree's own
+``chip_smoke.run_path`` (reset, 3 warm-up steps, then ``--steps`` steps of
+MPPI act and env step; at bench200ervo the even robots beep).  Per cell it
+runs twice: once for the host ms per step (run_path's own clock, ending in
+a synchronize), and once with torch.profiler started at the first timed
+step's act, which gives the device operations, the device busy time (the
+sum of the device events' durations on the one stream) and the device
+time of K2 and K3 (their kernels before and after the slot-order redesign,
+by name) per step.  The profiled window also holds run_path's final
+checksum test (a few operations).  Prints one JSON line; with ``--out``
+also writes it there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+K2_K3 = ("fill_sorted_kernel", "paint_rows_kernel", "occupancy_bits_kernel",
+         "fill_bits_kernel", "paint_slots_kernel")
+WARMUP = 3
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", required=True)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("step_profile: no CUDA device")
+    import chip_smoke as cs
+    from img_env_tpu_torch import EnvConfig, MpcController, MppiConfig, NavEnv
+
+    def profiled(env, ctl, **kw):
+        """The device events of run_path's timed steps."""
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        act, calls = ctl.act, [0]
+
+        def act_from_first_timed_step(*a, **k):
+            calls[0] += 1
+            if calls[0] == WARMUP + 1:
+                torch.cuda.synchronize()
+                prof.start()
+            return act(*a, **k)
+
+        ctl.act = act_from_first_timed_step
+        try:
+            cs.run_path(env, ctl, WARMUP, args.steps, (), **kw)
+        finally:
+            del ctl.act
+            prof.stop()
+        return [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    out = {"tree": args.tree, "card": card, "cells": {}}
+    for name, cfg, kw in (
+            ("bench200", cs.BENCH200, {}),
+            ("bench200ped", cs.BENCH200PED, {"crowd": True}),
+            ("bench200ervo", cs.BENCH200ERVO, {"crowd": True, "beep": True})):
+        env = NavEnv(EnvConfig.from_dict(cfg), "cuda")
+        ctl = MpcController(env, MppiConfig(horizon=cs.H, samples=cs.K))
+        host_ms = cs.run_path(env, ctl, WARMUP, args.steps, (), **kw).ms_step
+        dev = profiled(env, ctl, **kw)
+        us = lambda evs: sum(e.time_range.elapsed_us() for e in evs)
+        k23 = [e for e in dev if any(k in e.name for k in K2_K3)]
+        cell = {"ms_per_step_host": host_ms,
+                "device_ops_per_step": len(dev) / args.steps,
+                "device_busy_ms_per_step": us(dev) / 1e3 / args.steps,
+                "k2_k3_ms_per_step": us(k23) / 1e3 / args.steps}
+        out["cells"][name] = cell
+        cs.log(f"# {args.tree} {name}: {cell}")
+        del env, ctl
+        torch.cuda.empty_cache()
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+
+
+if __name__ == "__main__":
+    main()

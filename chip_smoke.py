@@ -16,15 +16,18 @@ beep_r 1.0 and ped_ca_p 0.8 as in img_env_tpu/configs/ervo_crowd.yaml):
   3. NavEnv(cfg) + MpcController for bench200, bench200ped and
      bench200ervo;
   4. holds each kernel bit-equal to its plain-torch twin at the production
-     shapes and times both, beside the least time the card could take
-     (its bound: bytes over 3.35 TB/s or operations over 67 T/s): K1
-     raster, K2 FOV fill (with its bitmap pre-pass) and K3 painter at
-     bench200, K2 also with robots on the map edges, on the crowd resets'
-     maps and on two scenes stacked, K3 also on the crowd resets'
-     thresholds, on no hits and on hits at every beam's first step, and
-     timed on subsets of its layout; K5 gen-1 painter at bench200; K4 ped
-     map at bench200ped (its reset with a seeded velocity per ped, and a
-     copy with forced ties and peds on the window edge);
+     shapes and times both (device time, the host's enqueue hidden),
+     beside the least time the card could take (its bound: bytes over
+     3.35 TB/s or operations over 67 T/s): K1 raster at bench200 on the
+     reset and crowded poses, every robot stacked on one pose, robots on
+     the map edges and footprints at the span limit; K2 FOV fill (with its
+     bitmap pre-pass) and K3 painter at bench200, K2 also with robots on
+     the map edges, on the crowd resets' maps and on two scenes stacked,
+     K3 also on the crowd resets' thresholds, on no hits and on hits at
+     every beam's first step, and timed on subsets of its layout; K5
+     gen-1 painter at bench200; K4 ped map at bench200ped (the reset with
+     a seeded velocity per ped, forced ties and peds on the window edge,
+     tiny and subnormal ranges, no ped in any window, 600 peds in each);
   5. the bench200 path: reset + control steps (act, then step);
   6. the crowd path: bench200ped reset + 3 warm-up and 20 timed control
      steps, the bench.py crowd checksum; every step launches K1-K4, and
@@ -224,11 +227,21 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches (after one warm-up)."""
+    """Mean device time of fn() over reps back-to-back launches (after one
+    warm-up).  A sleep kernel holds the stream while the host enqueues
+    them, so a wrapper whose host work outlasts its kernel is timed by the
+    kernel, not by the enqueue rate (the sleep lasts about twice the
+    host-side time of the reps, at most 50 ms: enough for every wrapper
+    here, while a slow twin is timed as before)."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    lead_s = min(2.0 * reps * (time.perf_counter() - t0), 0.05)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    torch.cuda._sleep(int(lead_s * 2e9))    # cycles, at most ~2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -348,6 +361,55 @@ def k3_subsets(env, s_hit, s_tail):
     return out
 
 
+def crowded_poses(poses):
+    """The poses with every odd robot pushed onto its even neighbour
+    (forced overlaps: count 2, id sums)."""
+    crowded = poses.clone()
+    crowded[1::2, :2] = crowded[0::2, :2] + 0.1
+    return crowded
+
+
+def map_edge_poses(poses, h: int, w: int, res: float):
+    """The poses with robots 0-43 on the map's four edges and corners."""
+    edge = poses.clone()
+    top_x, top_y = (h - 1) * res, (w - 1) * res
+    edge[0:10, 0], edge[10:20, 0] = 0.0, top_x
+    edge[20:30, 1], edge[30:40, 1] = 0.0, top_y
+    edge[40:44, :2] = torch.tensor([[0.0, 0.0], [top_x, 0.0], [0.0, top_y],
+                                    [top_x, top_y]], device=edge.device)
+    return edge
+
+
+def raster_cases(env, poses):
+    """K1's inputs (name, cells [N, P, 2], valid [N, P]) at ``env``'s map:
+    the reset poses; the crowded poses (timed); every robot stacked on
+    robot 0's pose (count N, id sums up to N (N + 1) / 2); the crowded
+    poses with robots straddling each map edge and corner; and circle
+    footprints as wide as ``check_footprint_span`` admits (a span of
+    RASTER_MAX_SPAN cells) at the crowded poses."""
+    from img_env_tpu_torch.ops import footprint, raster
+
+    t, res = env.tables, env.statics.resolution
+    h, w = env.statics.static_map.shape
+    to_cells = lambda p, pts: raster.world_to_cell(
+        raster.transform_points(p, pts), res)
+    crowded = crowded_poses(poses)
+    big = footprint.circle_points(
+        0.0, 0.0, (raster.RASTER_MAX_SPAN - 2.5) * res / 2)
+    if raster.check_footprint_span(big[None], res) != raster.RASTER_MAX_SPAN:
+        raise AssertionError("the span-limit footprint misses the limit")
+    big = torch.as_tensor(big, device=poses.device).expand(
+        poses.shape[0], -1, -1)
+    cases = [("reset poses", poses), ("crowded poses", crowded),
+             ("stacked on one pose", poses[:1].expand_as(poses)),
+             ("on the map edges", map_edge_poses(crowded, h, w, res))]
+    return ([(name, to_cells(p, t.robot_points), t.robot_mask)
+             for name, p in cases]
+            + [("footprints at the span limit", to_cells(crowded, big),
+                torch.ones(big.shape[:2], dtype=torch.bool,
+                           device=poses.device))])
+
+
 def selfcheck(env, state, crowds):
     """Each kernel against its twin on the same device tensors at the
     production shapes, timed at bench200; ``crowds``: (name, env, state)
@@ -361,23 +423,21 @@ def selfcheck(env, state, crowds):
     h, w = state.obs_map.shape
     out = {}
 
-    # K1: the reset poses, and the same poses with every odd robot pushed
-    # onto its even neighbour (forced overlaps: count 2, id sums)
+    # K1: every case of raster_cases; timed on the crowded poses
     poses = state.robots.pose
-    crowded = poses.clone()
-    crowded[1::2, :2] = crowded[0::2, :2] + 0.1
     k1_err = 0.0
-    for p in (poses, crowded):
-        cells = raster.world_to_cell(
-            raster.transform_points(p, t.robot_points), res)
-        got = raster.robot_maps_kernel(cells, t.robot_mask, h, w)
-        want = raster.robot_maps_twin(cells, t.robot_mask, h, w)
+    cases = raster_cases(env, poses)
+    for name, cells, valid in cases:
+        got = raster.robot_maps_kernel(cells, valid, h, w)
+        want = raster.robot_maps_twin(cells, valid, h, w)
         mism = int((got != want).sum())
         k1_err = max(k1_err, float((got.long() - want.long()).abs().max()))
-        log(f"# K1 raster: {mism} mismatched cells of {got.numel()}, "
-            f"max count {int((got & 0xFFF).max())}")
+        log(f"# K1 raster, {name}: {mism} mismatched cells of "
+            f"{got.numel()}, max count {int((got & 0xFFF).max())}, "
+            f"{int((got != 0).sum())} cells covered")
         if mism:
-            raise AssertionError("K1 raster kernel != twin")
+            raise AssertionError(f"K1 raster kernel != twin ({name})")
+    cells = cases[1][1]
     k1_ms = cuda_ms(lambda: raster.robot_maps_kernel(cells, t.robot_mask,
                                                      h, w), 50)
     k1_plain = cuda_ms(lambda: raster.robot_maps_twin(cells, t.robot_mask,
@@ -392,6 +452,7 @@ def selfcheck(env, state, crowds):
     # robot i reading scene i // 100
     from img_env_tpu_torch.ops import polar
 
+    crowded = crowded_poses(poses)
     packed = raster.build_layers(
         state.obs_map, res, crowded, t.robot_points, t.robot_mask,
         torch.zeros((0, 3), device=poses.device),
@@ -400,12 +461,7 @@ def selfcheck(env, state, crowds):
     ).packed
     args = fill_args(env, packed, crowded)
     occ_k = check_fill("crowded poses", args)
-    edge = crowded.clone()
-    top_x, top_y = (h - 1) * res, (w - 1) * res
-    edge[0:10, 0], edge[10:20, 0] = 0.0, top_x
-    edge[20:30, 1], edge[30:40, 1] = 0.0, top_y
-    edge[40:44, :2] = torch.tensor([[0.0, 0.0], [top_x, 0.0], [0.0, top_y],
-                                    [top_x, top_y]], device=edge.device)
+    edge = map_edge_poses(crowded, h, w, res)
     check_fill("robots on the map edge", fill_args(env, packed, edge))
     crowd_occ = {}
     for name, env_c, state_c in crowds:
@@ -475,29 +531,30 @@ def selfcheck(env, state, crowds):
     return out
 
 
-def selfcheck_pedmap(env, state):
-    """K4 against its twin on the crowd reset's base-frame peds (N = M =
-    200), and on a copy with forced ties (every odd ped stacked on its even
-    neighbour), peds on the +-3 m window edge and on the robot.  Each ped
-    carries its own velocity (seeded), so the vx/vy channels name the
-    winning ped: on the tie copy, the twin with ties given to the smaller
-    index must differ from the twin, or the check could not see K4's
-    winner rule.  Returns (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by, bytes, operations)."""
-    from img_env_tpu_torch.env import observe
-    from img_env_tpu_torch.ops import pedmap
+def pedmap_cases(env, state):
+    """K4's inputs (name, (px, py, vx, vy) [N, M] f32 base frame) at the
+    crowd reset of ``env``, each ped with its own seeded velocity (the
+    reset's are all 0), so the vx/vy channels name the winning ped:
 
-    cfg = env.cfg
-    hs, r_img = int(cfg.ped_image_size[0]), float(cfg.ped_image_r)
-    res = 6.0 / hs
+    * the reset's peds (N = M = 200);
+    * ties (timed): every odd ped stacked on its even neighbour, peds on
+      the +-3 m window's +x and -y edges, on the robot (range 0) and a
+      ten-way tie;
+    * tiny ranges: the reset's peds with some at subnormal range^2
+      (|x| = 1e-20), at +0 from -0 coordinates and at a range^2 that
+      underflows to 0 (|x| = 1e-23);
+    * out of every window: the reset's peds 100 m off in x;
+    * 600 in the windows: 600 peds per robot drawn over [-3.2, 3.2]^2
+      (most inside the window, many covering every pixel)."""
+    from img_env_tpu_torch.env import observe
+
     pos = state.peds.pos
     gen = torch.Generator(device=pos.device)
     gen.manual_seed(0)
-    # the reset's velocities are all 0: draw one per ped in [-1, 1]^2
     vel = torch.rand(pos.shape, generator=gen, device=pos.device) * 2 - 1
+    reset = observe.peds_in_base(state.robots.pose, pos, vel)
     stacked = pos.clone()
     stacked[1::2] = stacked[0::2]
-    reset = observe.peds_in_base(state.robots.pose, pos, vel)
     px, py, vx, vy = (x.clone() for x in observe.peds_in_base(
         state.robots.pose, stacked, vel))
     px[:, 100:120:2] = 3.0                 # on the window's +x edge
@@ -505,18 +562,60 @@ def selfcheck_pedmap(env, state):
     px[:, 140:150] = 0.0                   # on the robot (range 0)
     py[:, 140:150] = 0.0
     px[:, 150:160], py[:, 150:160] = 1.0, 0.5   # a ten-way tie
+    tiny = [x.clone() for x in reset]
+    tiny[0][:, 0:10], tiny[1][:, 0:10] = 1e-20, 0.0
+    tiny[0][:, 10:20], tiny[1][:, 10:20] = -0.0, -0.0
+    tiny[0][:, 20:30], tiny[1][:, 20:30] = -1e-23, 1e-23
+    far = (reset[0] + 100.0, *reset[1:])
+    n = state.robots.pose.shape[0]
+    u = torch.rand((4, n, 600), generator=gen, device=pos.device)
+    dense = ((u[0] * 6.4 - 3.2), (u[1] * 6.4 - 3.2), u[2] * 2 - 1,
+             u[3] * 2 - 1)
+    return [("reset", reset), ("ties", (px, py, vx, vy)),
+            ("tiny ranges", tuple(tiny)), ("out of every window", far),
+            ("600 in the windows", dense)]
+
+
+def pedmap_pairs(base, res: float, r_img: float, hs: int) -> int:
+    """(ped, pixel) pairs K4 tests: the pixels of each in-window ped's
+    index box, clipped to the map."""
+    from img_env_tpu_torch.ops import pedmap
+
+    px, py = base[0], base[1]
+    half = pedmap.HALF
+    in_win = (px <= half) & (px >= -half) & (py <= half) & (py >= -half)
+    in_x, in_y = pedmap.pixel_cover_bounds_exact(-px + half, -py + half, res,
+                                                 r_img, hs)
+    return int((in_x.sum(-1) * in_y.sum(-1) * in_win).sum())
+
+
+def selfcheck_pedmap(env, state):
+    """K4 against its twin on every case of ``pedmap_cases``, timed on the
+    ties; on the ties, the twin with ties given to the smaller index must
+    differ from the twin, or the check could not see K4's winner rule.
+    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by, bytes,
+    operations)."""
+    from img_env_tpu_torch.ops import pedmap
+
+    cfg = env.cfg
+    hs, r_img = int(cfg.ped_image_size[0]), float(cfg.ped_image_r)
+    res = 6.0 / hs
     err = 0.0
-    for base in (reset, (px, py, vx, vy)):
+    cases = pedmap_cases(env, state)
+    for name, base in cases:
         got = pedmap.ped_map_kernel(*base, res, r_img, hs)
         want = pedmap.ped_map_twin(*base, res, r_img, hs)
         mism = int((got != want).sum())
         err = max(err, float((got - want).abs().max()))
         occ = want[:, 0] > 0
         n_vx = int(torch.unique(want[:, 1][occ]).numel())
-        log(f"# K4 ped map: {mism} mismatched of {got.numel()}, "
-            f"{int(occ.sum())} occupied pixels, {n_vx} distinct vx")
+        log(f"# K4 ped map, {name}: {mism} mismatched of {got.numel()}, "
+            f"{int(occ.sum())} occupied pixels, {n_vx} distinct vx, "
+            f"{pedmap_pairs(base, res, r_img, hs)} (ped, pixel) pairs")
         if mism:
-            raise AssertionError("K4 ped-map kernel != twin")
+            raise AssertionError(f"K4 ped-map kernel != twin ({name})")
+    base = cases[1][1]
+    want = pedmap.ped_map_twin(*base, res, r_img, hs)
     # ties to the smaller index: the twin over the peds in reverse order
     flipped = pedmap.ped_map_twin(*(x.flip(1) for x in base), res, r_img, hs)
     seen = int((flipped[:, 1:] != want[:, 1:]).sum())
@@ -524,17 +623,15 @@ def selfcheck_pedmap(env, state):
         "smaller index")
     if seen == 0:
         raise AssertionError("K4 check cannot see the tie rule")
-    # operations: a window test per (robot, ped), and per ped in the
-    # window ~6 per pixel of its disc's index box
+    # operations: a window test per (robot, ped), ~8 per (ped, pixel) pair
+    # of the in-window peds' clipped index boxes, ~4 per output pixel
     n, m = base[0].shape
-    inside = ((base[0].abs() <= 3.0 + r_img)
-              & (base[1].abs() <= 3.0 + r_img)).sum()
-    box = (int(2 * r_img / res) + 2) ** 2
     return (err, cuda_ms(lambda: pedmap.ped_map_kernel(*base, res, r_img,
                                                        hs), 50),
             cuda_ms(lambda: pedmap.ped_map_twin(*base, res, r_img, hs), 5),
             *bound(nbytes(*base) + n * 3 * hs * hs * 4,
-                   12 * n * m + 6 * box * int(inside)))
+                   12 * n * m + 8 * pedmap_pairs(base, res, r_img, hs)
+                   + 4 * n * hs * hs))
 
 
 class PathRun(NamedTuple):

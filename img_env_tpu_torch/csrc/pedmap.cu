@@ -1,130 +1,189 @@
 // K4: the 3-channel pedestrian map (occupancy, vx, vy) of every robot.
 //
-// Replaces the Pallas TPU kernel img_env_tpu/ops/pallas_pedmap.py
+// Replaces the Pallas TPU kernel img_env_tpu/ops/pallas_pedmap.py:116
 // (ped_map_pallas / _pedmap_kernel), whose [psub, 128] pixel tiles and
 // scalar-prefetched ped table are TPU grid artifacts.
 //
 // Semantics (yaml_env.py:392-458): robot n's map covers +-3 m; the peds,
 // sorted by range^2 (stable), draw their discs in order and later ones
 // overwrite earlier pixels.  Without a sort, the winner at a pixel is the
-// covering ped with the lexicographically largest (range^2, index): peds
-// are visited in ascending index and a covering ped replaces the incumbent
-// when range^2 >= best.  Pixel (h, w) is covered by ped i when the ped is in
-// the window, the pixel centre ((h + .5) res, (w + .5) res) is strictly
-// inside the disc of radius r around (3 - px, 3 - py), and h, w lie in the
-// reference's floor-div index box [floor((t - r) / res), floor((t + r) /
-// res)).  Every float is rounded as the plain-torch twin rounds it
-// (ops/pedmap.py): range^2 is one fused multiply-add, the box bounds
-// multiply by the float32 reciprocal of res, the rest is explicit
-// round-to-nearest arithmetic (no contraction), so the map is bit-equal.
+// covering ped with the lexicographically largest (range^2, index).  Pixel
+// (h, w) is covered by ped i when the ped is in the window, the pixel
+// centre ((h + .5) res, (w + .5) res) is strictly inside the disc of radius
+// r around (3 - px, 3 - py), and h, w lie in the reference's floor-div
+// index box [floor((t - r) / res), floor((t + r) / res)).  Every float is
+// rounded as the plain-torch twin rounds it (ops/pedmap.py): range^2 is one
+// fused multiply-add, flushed to +0 where it is subnormal (as XLA flushes
+// it), the box bounds multiply by the float32 reciprocal of res, the rest
+// is explicit round-to-nearest arithmetic (no contraction), so the map is
+// bit-equal.
 //
-// What bounds it on the H100: compare/select work, N x M x hs^2 pixel tests
-// (200 x 200 x 2304 = 92 M per step); inputs (16 B per ped) and the output
-// (27 KB per robot) are small.  Design: one block of 512 threads per robot,
-// each thread owning up to 8 pixels with (best range^2, vx, vy) in
-// registers.  Peds are staged through shared memory in tiles of 256, with
-// their derived terms (window centre, index box, range^2) computed once per
-// ped; a thread tests only pixels inside a ped's index box.
+// What bounds it on the H100: its bytes, almost all of them the output
+// (27,648 B per robot at 48 x 48; 16 B per ped in).  The work is small:
+// at bench200ped ~30 of 200 peds fall in a robot's window, each with an
+// index box of ~25-36 pixels, so ~10^3 useful (ped, pixel) tests per robot.
+// Design: one block of 512 threads per robot (all robots resident in one
+// wave; 512 rather than 256 threads hide more of the scatter's latency).
+// Each tile of 512 peds is read coalesced, one ped per thread; a
+// ped out of the window costs that one test.  The in-window peds with a
+// non-empty clipped box are compacted into shared memory (warp ballot,
+// one shared atomicAdd per warp).  Each warp then takes whole peds and its
+// lanes the pixels of the ped's box; a pixel inside the disc does a shared
+// 64-bit atomicMax of the key (float_bits(range^2) << 32) | (index + 1).
+// range^2 is finite and >= +0 for an in-window ped, so its bits order as
+// unsigned integers and the max key is exactly the lex-max (range^2,
+// index) winner, in any thread order and across tiles; 0 means empty.  The
+// keys are decoded into (1, vx, vy) of the winner (read from shared
+// memory when the robot's peds fit one tile, as they do at bench200ped),
+// or (0, 0, 0), and stored as 16-byte stores when hs * hs is a multiple
+// of 4.
 
+#include <cfloat>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define PM_THREADS 512
-#define PM_PIX 8
-#define PM_TILE 256
+#define PM_WARPS (PM_THREADS / 32)
+#define PM_MAX_PIXELS 4096  // 64 x 64 keys: 32 KB of shared memory
 
-__global__ void pedmap_kernel(const float* __restrict__ px,
-                              const float* __restrict__ py,
-                              const float* __restrict__ vx,
-                              const float* __restrict__ vy, int m, float res,
-                              float inv_res, float r_img, float r2, float half,
-                              int hs, float* __restrict__ out) {
-  __shared__ float s_rsq[PM_TILE], s_tx[PM_TILE], s_ty[PM_TILE];
-  __shared__ float s_lox[PM_TILE], s_hix[PM_TILE], s_loy[PM_TILE],
-      s_hiy[PM_TILE];
-  __shared__ float s_vx[PM_TILE], s_vy[PM_TILE];
+struct PixelOut {
+  float occ, vx, vy;
+};
+
+// vx/vy: the robot's ped velocities, in shared or global memory.
+__device__ __forceinline__ PixelOut decode(unsigned long long key,
+                                           const float* vx, const float* vy) {
+  if (key == 0ull) return {0.f, 0.f, 0.f};
+  const unsigned i = (unsigned)(key & 0xffffffffull) - 1u;
+  return {1.f, vx[i], vy[i]};
+}
+
+__global__ void __launch_bounds__(PM_THREADS)
+    pedmap_kernel(const float* __restrict__ px, const float* __restrict__ py,
+                  const float* __restrict__ vx, const float* __restrict__ vy,
+                  int m, float res, float inv_res, float r_img, float r2,
+                  float half, int hs, float* __restrict__ out) {
+  extern __shared__ unsigned long long s_key[];  // [hs * hs]
+  __shared__ float s_tx[PM_THREADS], s_ty[PM_THREADS];
+  __shared__ unsigned s_box[PM_THREADS];  // lo_h | hi_h << 8 | lo_w << 16 | hi_w << 24
+  __shared__ unsigned long long s_pkey[PM_THREADS];
+  __shared__ int s_cnt[2];  // listed peds of the even / odd tiles
+  __shared__ float s_vx[PM_THREADS], s_vy[PM_THREADS];  // when m fits
   const int robot = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int npix = hs * hs;
   const size_t row = (size_t)robot * m;
+  const float fhs = (float)hs;
 
-  float hf[PM_PIX], wf[PM_PIX], xc[PM_PIX], yc[PM_PIX];
-  float best[PM_PIX], avx[PM_PIX], avy[PM_PIX];
-#pragma unroll
-  for (int k = 0; k < PM_PIX; ++k) {
-    const int p = min(tid + k * PM_THREADS, npix - 1);
-    hf[k] = (float)(p / hs);
-    wf[k] = (float)(p % hs);
-    xc[k] = __fmul_rn(__fadd_rn(hf[k], 0.5f), res);
-    yc[k] = __fmul_rn(__fadd_rn(wf[k], 0.5f), res);
-    best[k] = -1.f;
-    avx[k] = 0.f;
-    avy[k] = 0.f;
-  }
+  for (int p = tid; p < npix; p += PM_THREADS) s_key[p] = 0ull;
+  if (tid < 2) s_cnt[tid] = 0;
 
-  for (int base = 0; base < m; base += PM_TILE) {
-    const int cnt = min(PM_TILE, m - base);
+  int tile = 0;
+  for (int base = 0; base < m; base += PM_THREADS, ++tile) {
+    // every thread has read the last tile's count and walked its list
     __syncthreads();
-    if (tid < cnt) {
-      const float x = px[row + base + tid], y = py[row + base + tid];
-      const bool in_w = x <= half && x >= -half && y <= half && y >= -half;
-      const float tx = in_w ? __fadd_rn(-x, half) : 1e9f;
-      const float ty = __fadd_rn(-y, half);
-      s_rsq[tid] = __fmaf_rn(x, x, __fmul_rn(y, y));
-      s_tx[tid] = tx;
-      s_ty[tid] = ty;
-      s_lox[tid] = floorf(__fmul_rn(__fsub_rn(tx, r_img), inv_res));
-      s_hix[tid] = floorf(__fmul_rn(__fadd_rn(tx, r_img), inv_res));
-      s_loy[tid] = floorf(__fmul_rn(__fsub_rn(ty, r_img), inv_res));
-      s_hiy[tid] = floorf(__fmul_rn(__fadd_rn(ty, r_img), inv_res));
-      s_vx[tid] = vx[row + base + tid];
-      s_vy[tid] = vy[row + base + tid];
+    if (tid == 0) s_cnt[(tile + 1) & 1] = 0;
+    const int i = base + tid;
+    bool keep = false;
+    float tx = 0.f, ty = 0.f;
+    unsigned box = 0u;
+    unsigned long long key = 0ull;
+    if (i < m) {
+      const float x = px[row + i], y = py[row + i];
+      if (m <= PM_THREADS) {
+        s_vx[i] = vx[row + i];
+        s_vy[i] = vy[row + i];
+      }
+      if (x <= half && x >= -half && y <= half && y >= -half) {
+        tx = __fadd_rn(-x, half);
+        ty = __fadd_rn(-y, half);
+        const int lo_h = (int)fmaxf(
+            floorf(__fmul_rn(__fsub_rn(tx, r_img), inv_res)), 0.f);
+        const int hi_h = (int)fminf(
+            floorf(__fmul_rn(__fadd_rn(tx, r_img), inv_res)), fhs);
+        const int lo_w = (int)fmaxf(
+            floorf(__fmul_rn(__fsub_rn(ty, r_img), inv_res)), 0.f);
+        const int hi_w = (int)fminf(
+            floorf(__fmul_rn(__fadd_rn(ty, r_img), inv_res)), fhs);
+        keep = lo_h < hi_h && lo_w < hi_w;
+        box = (unsigned)lo_h | (unsigned)hi_h << 8 | (unsigned)lo_w << 16 |
+              (unsigned)hi_w << 24;
+        float rsq = __fmaf_rn(x, x, __fmul_rn(y, y));
+        if (rsq < FLT_MIN) rsq = 0.f;  // XLA flushes a subnormal range^2
+        key = (unsigned long long)__float_as_uint(rsq) << 32 |
+              (unsigned)(i + 1);
+      }
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    int slot = 0;
+    if (lane == 0 && ballot) slot = atomicAdd(&s_cnt[tile & 1], __popc(ballot));
+    slot = __shfl_sync(0xffffffffu, slot, 0) +
+           __popc(ballot & ((1u << lane) - 1u));
+    if (keep) {
+      s_tx[slot] = tx;
+      s_ty[slot] = ty;
+      s_box[slot] = box;
+      s_pkey[slot] = key;
     }
     __syncthreads();
-    for (int i = 0; i < cnt; ++i) {
-      const float lox = s_lox[i], hix = s_hix[i], loy = s_loy[i],
-                  hiy = s_hiy[i];
-      const float tx = s_tx[i], ty = s_ty[i], rsq = s_rsq[i];
-#pragma unroll
-      for (int k = 0; k < PM_PIX; ++k) {
-        if (hf[k] >= lox && hf[k] < hix && wf[k] >= loy && wf[k] < hiy) {
-          const float dx = __fsub_rn(xc[k], tx);
-          const float dy = __fsub_rn(yc[k], ty);
-          const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-          if (d2 < r2 && rsq >= best[k]) {
-            best[k] = rsq;
-            avx[k] = s_vx[i];
-            avy[k] = s_vy[i];
-          }
-        }
+    const int cnt = s_cnt[tile & 1];
+    for (int c = warp; c < cnt; c += PM_WARPS) {
+      const unsigned b = s_box[c];
+      const int lo_h = b & 255u, hi_h = (b >> 8) & 255u;
+      const int lo_w = (b >> 16) & 255u, bw = (int)(b >> 24) - lo_w;
+      const int area = (hi_h - lo_h) * bw;
+      const float cx = s_tx[c], cy = s_ty[c];
+      const unsigned long long k = s_pkey[c];
+      for (int q = lane; q < area; q += 32) {
+        const int h = lo_h + q / bw, w = lo_w + q % bw;
+        const float dx =
+            __fsub_rn(__fmul_rn(__fadd_rn((float)h, 0.5f), res), cx);
+        const float dy =
+            __fsub_rn(__fmul_rn(__fadd_rn((float)w, 0.5f), res), cy);
+        const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+        if (d2 < r2) atomicMax(&s_key[h * hs + w], k);
       }
     }
   }
+  __syncthreads();
 
+  const float* rvx = m <= PM_THREADS ? s_vx : vx + row;
+  const float* rvy = m <= PM_THREADS ? s_vy : vy + row;
   float* o = out + (size_t)robot * 3 * npix;
-#pragma unroll
-  for (int k = 0; k < PM_PIX; ++k) {
-    const int p = tid + k * PM_THREADS;
-    if (p < npix) {
-      const bool occ = best[k] >= 0.f;
-      o[p] = occ ? 1.f : 0.f;
-      o[npix + p] = occ ? avx[k] : 0.f;
-      o[2 * npix + p] = occ ? avy[k] : 0.f;
+  if ((npix & 3) == 0) {
+    float4* o0 = reinterpret_cast<float4*>(o);
+    float4* o1 = reinterpret_cast<float4*>(o + npix);
+    float4* o2 = reinterpret_cast<float4*>(o + 2 * npix);
+    for (int q = tid; q < npix / 4; q += PM_THREADS) {
+      const PixelOut a = decode(s_key[4 * q], rvx, rvy);
+      const PixelOut b = decode(s_key[4 * q + 1], rvx, rvy);
+      const PixelOut c = decode(s_key[4 * q + 2], rvx, rvy);
+      const PixelOut d = decode(s_key[4 * q + 3], rvx, rvy);
+      o0[q] = make_float4(a.occ, b.occ, c.occ, d.occ);
+      o1[q] = make_float4(a.vx, b.vx, c.vx, d.vx);
+      o2[q] = make_float4(a.vy, b.vy, c.vy, d.vy);
+    }
+  } else {
+    for (int p = tid; p < npix; p += PM_THREADS) {
+      const PixelOut a = decode(s_key[p], rvx, rvy);
+      o[p] = a.occ;
+      o[npix + p] = a.vx;
+      o[2 * npix + p] = a.vy;
     }
   }
 }
 
 // px/py/vx/vy [n, m] f32 base-frame ped positions and velocities (unsorted);
-// out [n, 3, hs, hs] f32.  hs * hs <= PM_THREADS * PM_PIX.
+// out [n, 3, hs, hs] f32.  hs * hs <= PM_MAX_PIXELS.
 extern "C" int img_env_ped_map(const float* px, const float* py,
                                const float* vx, const float* vy, int n, int m,
                                float res, float inv_res, float r_img,
                                float r2, float half, int hs, float* out,
                                cudaStream_t stream) {
-  if (hs * hs > PM_THREADS * PM_PIX) return (int)cudaErrorInvalidValue;
+  if (hs <= 0 || hs * hs > PM_MAX_PIXELS) return (int)cudaErrorInvalidValue;
   if (n > 0)
-    pedmap_kernel<<<n, PM_THREADS, 0, stream>>>(px, py, vx, vy, m, res,
-                                                inv_res, r_img, r2, half, hs,
-                                                out);
+    pedmap_kernel<<<n, PM_THREADS,
+                    sizeof(unsigned long long) * (size_t)hs * hs, stream>>>(
+        px, py, vx, vy, m, res, inv_res, r_img, r2, half, hs, out);
   return (int)cudaGetLastError();
 }

@@ -212,11 +212,13 @@ _CIRCLES = (RANGE_CIRCLE, RANGE_CIRCLE_FIX, CIRCLE_FIX)
 
 
 def draw(spec: SamplerSpec, generator: torch.Generator,
-         device="cpu") -> SamplerDraws:
-    """The draws of one scenario from ``generator``, float32.  The circle
-    radius and noises are drawn only when a circle pose type is
-    configured (zeros otherwise), the go-back draw only for 'random'."""
+         device=None) -> SamplerDraws:
+    """The draws of one scenario from ``generator``, float32, on
+    ``device`` (default: the generator's).  The circle radius and noises
+    are drawn only when a circle pose type is configured (zeros
+    otherwise), the go-back draw only for 'random'."""
     dt = torch.float32
+    device = generator.device if device is None else device
     o, a, t, m = (spec.obs_type.shape[0], spec.begin_type.shape[0],
                   spec.trials, spec.n_peds)
     rand = lambda *shape: torch.rand(shape, generator=generator,
@@ -441,12 +443,13 @@ def _clear_of_obstacles(cand_xy, module: float, obs_pose, obs_radius):
 
 
 def sample_scenario(spec: SamplerSpec, generator: torch.Generator,
-                    device="cpu") -> ScenarioSample:
+                    device=None) -> ScenarioSample:
+    """One scenario on ``device`` (default: the generator's)."""
     return place(spec, draw(spec, generator, device))
 
 
 def sample_scenario_retry(spec: SamplerSpec, generator: torch.Generator,
-                          device="cpu") -> ScenarioSample:
+                          device=None) -> ScenarioSample:
     """Bounded whole-scenario re-draw when placement fails (ok=False),
     as the reference re-rolls layouts (reset_helper.py:251-258) and
     retries reset up to 10 times (yaml_env.py:304-311)."""

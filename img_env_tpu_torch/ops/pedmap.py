@@ -12,9 +12,11 @@ floor-div box [floor((t - r)/res), floor((t + r)/res)) of the reference
 ``ped_map_twin`` is the plain-torch version: stable sort by range^2, then
 the maximal covering sorted position per pixel.  Kernel K4 needs no sort:
 the last sorted writer is the lexicographic max of (range^2, original
-index) over the covering peds.  Both compute every float the same way:
-range^2 is one fused multiply-add (as XLA compiles the JAX package's
-``px * px + py * py``), the box bounds divide through the float32
+index) over the covering peds, which it finds as the max of the 64-bit
+key (float_bits(range^2) << 32) | (index + 1).  Both compute every float
+the same way: range^2 is one fused multiply-add (as XLA compiles the JAX
+package's ``px * px + py * py``), flushed to +0 where it is subnormal (as
+XLA's CPU build flushes it), the box bounds divide through the float32
 reciprocal of ``res``, everything else rounds per operation.
 """
 
@@ -28,12 +30,17 @@ from img_env_tpu_torch.ops.f32 import fma
 from img_env_tpu_torch.ops.raster import div_const
 
 HALF = 3.0                # the map covers +-3 m around the robot
-PEDMAP_MAX_PIXELS = 512 * 8    # csrc/pedmap.cu: 512 threads x 8 pixels
+PEDMAP_MAX_PIXELS = 64 * 64   # csrc/pedmap.cu: one 64-bit key per pixel
+                              # in 32 KB of shared memory
 
 
 def range_sq(px, py):
-    """Base-frame range^2, contracted as XLA contracts it in float32."""
-    return fma(px, px, py * py)
+    """Base-frame range^2, contracted as XLA contracts it in float32, and
+    +0 where it falls below the smallest normal float: XLA's CPU build
+    flushes subnormal results to zero (as the TPU does), so a ped at a
+    subnormal range^2 ties with one on the robot."""
+    r = fma(px, px, py * py)
+    return torch.where(r < torch.finfo(r.dtype).tiny, 0.0, r)
 
 
 def _r2(ped_image_r: float) -> float:

@@ -186,6 +186,17 @@ def build_layers(obs_map, resolution, robot_pose, robot_points, robot_mask,
     ped_strong = scatter_occupancy(world_to_cell(pr, resolution),
                                    ped_right_mask, h, w)
 
+    return OccupancyLayers(
+        obs_map=obs_map, ped_strong=ped_strong, ped_weak=ped_weak,
+        robot_count=robot_count, robot_cells=r_cells,
+        robot_cells_valid=robot_mask,
+        packed=pack_layers(obs_map, ped_strong, ped_weak, robot_count,
+                           robot_id))
+
+
+def pack_layers(obs_map, ped_strong, ped_weak, robot_count, robot_id):
+    """The id-packed int32 map (bit layout in the module doc) from the
+    layers, ``robot_id`` the id-sum per cell."""
     static_occ = (obs_map < CELL_FREE_MIN) | ped_strong | ped_weak
     # the id field is only decoded where robot_count == 1; clamp the id-sum
     # of overlap cells into its 12 bits
@@ -195,16 +206,12 @@ def build_layers(obs_map, resolution, robot_pose, robot_points, robot_mask,
     is_ped = ped_strong | (ped_weak & writable) | ((obs_map == 1) & ~obs0)
     is_obs = obs0 & ~ped_strong
     i32 = lambda b: b.to(torch.int32)
-    packed = (i32(static_occ)
-              | (torch.clamp(robot_count, max=2) << 1)
-              | (robot_id << 3)
-              | (i32(is_ped) << 15)
-              | (i32(is_obs) << 16)
-              | (i32(obs_map == 2) << 17))
-    return OccupancyLayers(
-        obs_map=obs_map, ped_strong=ped_strong, ped_weak=ped_weak,
-        robot_count=robot_count, robot_cells=r_cells,
-        robot_cells_valid=robot_mask, packed=packed)
+    return (i32(static_occ)
+            | (torch.clamp(robot_count, max=2) << 1)
+            | (robot_id << 3)
+            | (i32(is_ped) << 15)
+            | (i32(is_obs) << 16)
+            | (i32(obs_map == 2) << 17))
 
 
 def collision_codes(layers: OccupancyLayers, latched_collision,

@@ -1,9 +1,12 @@
 """The CUDA kernels vs their plain-torch twins on the card, at odd small
-shapes: robot counts off the warp width, robots on the map edge; the fill
-across scenes and with a bitmap too large for shared memory (K2); the
-painter's dense near-sensor slots on forced thresholds (K3); ped counts
-off the shared-memory tile, peds on the +-3 m window edge and exact range
-ties (K4); the gen-1 block painter with wide slots (K5).
+shapes: robot counts off the warp width, robots on the map edge, robots
+stacked on one pose, footprints at the span limit and more robots than
+the card holds blocks at once (K1); the fill across scenes and with a
+bitmap too large for shared memory (K2); the painter's dense near-sensor
+slots on forced thresholds (K3); ped counts off the shared-memory tile,
+peds on the +-3 m window edge, exact range ties, no ped in any window and
+600 in one (K4); the gen-1 block painter with wide slots (K5); and the
+scenario sampler on a CUDA generator.
 
 These need an NVIDIA GPU and nvcc and skip without them.  On the machine
 with the card (which has no JAX) run them without the JAX test conftest:
@@ -17,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from img_env_tpu_torch.env import observe
+from img_env_tpu_torch.config import EnvConfig
+from img_env_tpu_torch.env import observe, sampler
 from img_env_tpu_torch.ops import painter, pedmap, polar, raster, view
 from img_env_tpu_torch.ops.footprint import circle_points, rectangle_points
 
@@ -71,6 +75,42 @@ def test_raster_kernel_matches_twin(dev, n):
     got = raster.robot_maps_kernel(cells, msk, *static.shape)
     want = raster.robot_maps_twin(cells, msk, *static.shape)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["stacked", "map_edges", "span_limit",
+                                  "many_robots"])
+def test_raster_kernel_edge_cases(dev, case):
+    """Every robot on one pose (count N, id sums up to N (N + 1) / 2);
+    footprints straddling each map edge and corner; circle footprints
+    spanning RASTER_MAX_SPAN cells (more points than a block holds in
+    registers); 1500 robots, more than the card holds blocks at once."""
+    n = 1500 if case == "many_robots" else 37
+    poses, static, pts, msk = _scene(n, 11, dev)
+    h, w = static.shape
+    if case == "stacked":
+        poses = poses[:1].expand_as(poses)
+    elif case == "map_edges":
+        top_x, top_y = (h - 1) * RES, (w - 1) * RES
+        poses = poses.clone()
+        poses[0:6, 0], poses[6:12, 0] = 0.0, top_x
+        poses[12:18, 1], poses[18:24, 1] = 0.0, top_y
+        poses[24:28, :2] = torch.tensor(
+            [[0.0, 0.0], [top_x, 0.0], [0.0, top_y], [top_x, top_y]],
+            device=dev)
+    elif case == "span_limit":
+        big = circle_points(0.0, 0.0,
+                            (raster.RASTER_MAX_SPAN - 2.5) * RES / 2)
+        assert raster.check_footprint_span(big[None], RES) == \
+            raster.RASTER_MAX_SPAN
+        pts = torch.as_tensor(big, device=dev).expand(n, -1, -1)
+        msk = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    cells = raster.world_to_cell(raster.transform_points(poses, pts), RES)
+    got = raster.robot_maps_kernel(cells, msk, h, w)
+    want = raster.robot_maps_twin(cells, msk, h, w)
+    assert torch.equal(got, want)
+    if case == "stacked":
+        assert int((got & 0xFFF).max()) == n
+        assert int((got >> 12).max()) == n * (n + 1) // 2
 
 
 @pytest.mark.parametrize("n", [1, 37, 70])
@@ -175,12 +215,56 @@ def _peds(n, m, seed, dev):
 
 @pytest.mark.parametrize("n,m", [(1, 1), (33, 8), (37, 257), (70, 600)])
 def test_pedmap_kernel_matches_twin(dev, n, m):
-    """M off the 256-ped tile (257, 600), N off the warp width."""
+    """M within one 512-ped tile (1, 8, 257) and over two (600), N off
+    the warp width."""
     base = _peds(n, m, n + m, dev)
     got = pedmap.ped_map_kernel(*base, 0.125, 0.3, 48)
     want = pedmap.ped_map_twin(*base, 0.125, 0.3, 48)
     assert torch.equal(got, want)
     assert bool(got[:, 0].any())
+
+
+@pytest.mark.parametrize("case", ["all_out", "600_in_one_window", "n1",
+                                  "n257"])
+def test_pedmap_kernel_edge_cases(dev, case):
+    """No ped in any window; all 600 peds inside robot 0's window (many
+    compacted peds and many atomics per pixel); N = 1 and N = 257."""
+    n, m = {"n1": (1, 40), "n257": (257, 40)}.get(case, (5, 600))
+    base = list(_peds(n, m, 17, dev))
+    if case == "all_out":
+        base[0] = base[0] + 100.0
+    elif case == "600_in_one_window":
+        rng = np.random.default_rng(5)
+        xy = torch.as_tensor(rng.uniform(-3.0, 3.0, (2, m)).astype(
+            np.float32), device=dev)
+        base[0][0], base[1][0] = xy[0], xy[1]
+    got = pedmap.ped_map_kernel(*base, 0.125, 0.3, 48)
+    want = pedmap.ped_map_twin(*base, 0.125, 0.3, 48)
+    assert torch.equal(got, want)
+    assert bool(got[:, 0].any()) == (case != "all_out")
+
+
+def test_sampler_follows_a_cuda_generator(dev):
+    """Without a device argument, the draws and the scenario lie on the
+    generator's device; with one, on that device."""
+    cfg = EnvConfig.from_dict({
+        "robot": dict(total=3, shape=["circle"], size=[[0.0, 0.0, 0.17]],
+                      begin_poses_type=["range"],
+                      begin_poses=[[1.5, 8.5, 1.5, 8.5]],
+                      target_poses_type=["range"],
+                      target_poses=[[1.5, 8.5, 1.5, 8.5]]),
+        "object": dict(total=2, shape=["circle"], size_range=[[0.2, 0.3]],
+                       poses_type=["range"], poses=[[2.0, 8.0, 2.0, 8.0]]),
+        "ped_sim": {"total": 0, "type": ""},
+        "global_map": {"map_file": "room_10.png", "resolution": 0.1}})
+    spec = sampler.SamplerSpec.from_config(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    assert all(x.is_cuda for x in sampler.draw(spec, g))
+    for fn in (sampler.sample_scenario, sampler.sample_scenario_retry):
+        s = fn(spec, g)
+        assert all(x.is_cuda for x in s if isinstance(x, torch.Tensor))
+    s = sampler.sample_scenario_retry(spec, g, dev)
+    assert s.init_poses.is_cuda
 
 
 def test_pedmap_kernel_other_sizes(dev):

@@ -7,7 +7,9 @@ needs the port to round as XLA's CPU build does: sin/cos with glibc's
 bits, the contracted multiply-adds of the base-frame rotation and of
 range^2, and a correctly rounded sqrt (ops/f32.py).  A numpy walk of K4's
 sortless loop (ascending index, update where range^2 >= best) holds the
-kernel's winner rule to the twin on the CPU.
+kernel's winner rule to the twin on the CPU, and a plain-torch statement
+of K4's 64-bit key rule holds it to the twin and to the JAX package on
+tie-heavy inputs.
 """
 
 import ctypes
@@ -23,6 +25,7 @@ from img_env_tpu.env import observe as jobserve
 from img_env_tpu.ops.pallas_pedmap import ped_map_pallas
 from img_env_tpu_torch.env import observe
 from img_env_tpu_torch.ops import f32, pedmap
+from img_env_tpu_torch.ops.raster import div_const
 
 T = torch.as_tensor
 MAX_PED, VEC, HS, R_IMG = 10, 7, 48, 0.3
@@ -144,6 +147,106 @@ def test_kernel_winner_rule_matches_twin(case):
     want = pedmap.ped_map_twin(*(T(b) for b in base), 6.0 / HS, R_IMG, HS)
     got = _emulate_kernel(*base, 6.0 / HS, R_IMG, HS)
     np.testing.assert_array_equal(got, want.numpy())
+
+
+def _key_rule(px, py, vx, vy, res, r_img, hs):
+    """csrc/pedmap.cu's rule in plain torch: each in-window ped i carries
+    the key (float_bits(range^2) << 32) | (i + 1); a scatter-amax of the
+    keys over the pixels of each ped's index box, clipped to the map, that
+    lie strictly inside its disc leaves each pixel its winner's key (0:
+    no ped)."""
+    n, m = px.shape
+    half = pedmap.HALF
+    rsq = pedmap.range_sq(px, py)
+    key = (rsq.view(torch.int32).long() << 32) | torch.arange(1, m + 1)
+    in_w = (px <= half) & (px >= -half) & (py <= half) & (py >= -half)
+    tx, ty = -px + half, -py + half
+    clip = lambda v: torch.floor(div_const(v, res)).clamp(0, hs)[..., None]
+    idx = torch.arange(hs)
+    box_h = (idx >= clip(tx - r_img)) & (idx < clip(tx + r_img))
+    box_w = (idx >= clip(ty - r_img)) & (idx < clip(ty + r_img))
+    centre = (idx.to(px.dtype) + 0.5) * res
+    dx, dy = centre - tx[..., None], centre - ty[..., None]
+    d2 = (dx * dx)[..., :, None] + (dy * dy)[..., None, :]
+    pairs = (in_w[..., None, None] & box_h[..., :, None]
+             & box_w[..., None, :] & (d2 < pedmap._r2(r_img)))
+    r_i, p_i, h_i, w_i = pairs.nonzero(as_tuple=True)
+    keys = torch.zeros(n * hs * hs, dtype=torch.int64).scatter_reduce_(
+        0, (r_i * hs + h_i) * hs + w_i, key[r_i, p_i], "amax")
+    occ = keys != 0
+    win = ((keys & 0xFFFFFFFF) - 1).clamp(min=0).view(n, hs * hs)
+    pick = lambda v: torch.where(
+        occ, torch.gather(v, 1, win).view(-1), torch.zeros(()))
+    return torch.stack([occ.to(px.dtype), pick(vx), pick(vy)]).view(
+        3, n, hs, hs).transpose(0, 1)
+
+
+def _tie_heavy(seed):
+    """Three robots at yaw 0, robot 0 on the origin (its base frame is the
+    world frame, exactly); 40 peds in a seeded order: random peds on a
+    1/64 m grid, four stacked on one point, four at one range^2 at
+    overlapping places, two at range 0, six on or just past the +-3 m
+    window's edges and corners, and one each at a subnormal range^2
+    (1e-20, 0), at +0 from (-0, -0) and at a range^2 that underflows to 0
+    (1e-23, -1e-23)."""
+    rng = np.random.default_rng(seed)
+    poses = np.float32([[0.0, 0.0, 0.0], [0.5, -0.25, 0.0],
+                        [-1.0, 2.0, 0.0]])
+    special = [[0.75, 0.5]] * 4 + [[1.0, 0.25], [1.0, -0.25], [-1.0, 0.25],
+                                   [0.25, 1.0]] + [[0.0, 0.0]] * 2 + [
+        [3.0, 1.0], [-3.0, -2.0], [1.5, 3.0], [3.0, 3.0],
+        [np.nextafter(np.float32(3), np.float32(4)), 0.0], [-3.0, 3.0],
+        [1e-20, 0.0], [-0.0, -0.0], [1e-23, -1e-23]]
+    grid = np.round(rng.uniform(-3.5, 3.5, (40 - len(special), 2)) * 64) / 64
+    ped_pos = np.concatenate([np.float32(special), grid]).astype(np.float32)
+    order = rng.permutation(len(ped_pos))
+    ped_pos = ped_pos[order]
+    ped_vel = rng.uniform(-1, 1, ped_pos.shape).astype(np.float32)
+    ped_r = np.full(len(ped_pos), 0.1, np.float32)
+    return poses, ped_pos, ped_vel, ped_r, np.full(3, 0.17, np.float32)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_key_rule_matches_twin_and_jax(seed):
+    """K4's 64-bit key rule == ped_map_twin == the JAX package's Pallas
+    kernel (interpret mode) and its XLA ped map, on tie-heavy inputs; the
+    port's whole ped observation equals the JAX package's there too."""
+    args = _tie_heavy(seed)
+    base_j, vec_j, map_j, min_j, kern_j = _jax(*args)
+    vec, pmap, pmin = observe.ped_vectors_and_map(
+        *(T(a) for a in args), MAX_PED, VEC, HS, R_IMG)
+    for got, want in ((vec, vec_j), (pmap, map_j), (pmin, min_j)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    base = observe.peds_in_base(*(T(a) for a in args[:3]))
+    for got, want in zip(base, base_j):
+        np.testing.assert_array_equal(got.numpy(), want)
+    # robot 0's peds: +0 and subnormal range^2 before the flush, 0 after
+    raw = f32.fma(base[0][0], base[0][0], base[1][0] * base[1][0])
+    tiny = (raw < 1.1754944e-38) & (raw > 0)
+    assert (raw == 0).sum() >= 4 and tiny.any()
+    assert (pedmap.range_sq(base[0][0], base[1][0])[tiny] == 0).all()
+    rule = _key_rule(*base, 6.0 / HS, R_IMG, HS)
+    twin = pedmap.ped_map_twin(*base, 6.0 / HS, R_IMG, HS)
+    np.testing.assert_array_equal(rule.numpy(), twin.numpy())
+    np.testing.assert_array_equal(rule.numpy(), np.asarray(kern_j))
+    np.testing.assert_array_equal(rule.numpy(), np.asarray(map_j))
+    assert rule[:, 0].sum() > 0
+
+
+def test_twin_ties_go_to_the_larger_index():
+    """Two peds on one point: the pixels they cover carry the velocity of
+    the one with the larger index, whichever order they come in."""
+    px, py = torch.tensor([[1.0, 1.0, -2.0]]), torch.tensor([[0.5, 0.5, 1.0]])
+    vx, vy = torch.tensor([[0.1, 0.2, 0.3]]), torch.tensor([[-0.1, -0.2, 0.0]])
+    for perm in ([0, 1, 2], [1, 0, 2]):
+        out = pedmap.ped_map_twin(px[:, perm], py[:, perm], vx[:, perm],
+                                  vy[:, perm], 6.0 / HS, R_IMG, HS)
+        occ = out[0, 0] > 0
+        x = float(px[0, 0])
+        stacked = occ[int((3.0 - x) * HS / 6.0)]      # a row of their disc
+        assert stacked.any()
+        assert set(out[0, 1][int((3.0 - x) * HS / 6.0)][stacked].tolist()) \
+            == {float(vx[0, perm[1]])}
 
 
 def test_sin_cos_have_the_xla_bits():

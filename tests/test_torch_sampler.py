@@ -22,7 +22,9 @@ from img_env_tpu_torch.config import EnvConfig
 from img_env_tpu_torch.env.sampler import (
     SamplerDraws,
     SamplerSpec,
+    draw,
     place,
+    sample_scenario,
     sample_scenario_retry,
 )
 
@@ -209,3 +211,22 @@ def test_circle_and_view_marginals_match_jax():
     assert (gap.max(axis=1) > 2.5).all()
     assert ((ours["target_poses"][:, 2, :2] >= 1.0)
             & (ours["target_poses"][:, 2, :2] <= 9.0)).all()
+
+
+def test_draws_follow_the_generator_device():
+    """Without a device argument the draws and the scenario lie on the
+    generator's device and equal those of an explicit device argument
+    (tests/test_torch_cuda_kernels.py holds the same on a CUDA
+    generator)."""
+    spec = SamplerSpec.from_config(EnvConfig.from_dict(
+        _cfg_dict(3, CELLS["range_obstacles"])))
+    g = torch.Generator().manual_seed(3)
+    ref = torch.Generator().manual_seed(3)
+    for got, want in ((draw(spec, g), draw(spec, ref, "cpu")),
+                      (sample_scenario(spec, g),
+                       sample_scenario(spec, ref, "cpu")),
+                      (sample_scenario_retry(spec, g),
+                       sample_scenario_retry(spec, ref, "cpu"))):
+        for a, b in zip(got, want):
+            assert a.device == g.device
+            assert torch.equal(a, b)

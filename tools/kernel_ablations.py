@@ -1,11 +1,33 @@
-"""Where K2's and K3's time goes at bench200, on one NVIDIA GPU.
+"""Where K1's, K2's, K3's and K4's time goes, on one NVIDIA GPU.
 
-    python3 tools/kernel_ablations.py [--out FILE]
+    python3 tools/kernel_ablations.py [--tree DIR] [--reps 30] [--out FILE]
 
-Builds the kernels of ``img_env_tpu_torch/csrc`` as they are and, from
-the same sources with one part cut out (a text substitution each, checked
-to apply), ablated copies that give wrong maps on purpose:
+Builds the kernels of ``DIR/img_env_tpu_torch/csrc`` (default: this
+repository) as they are and, from the same sources with one part cut out
+(text substitutions, checked to apply), ablated copies that give wrong
+maps on purpose.  A cut lists one variant per kernel design (K1: the
+memset design, a cudaMemsetAsync then one block per robot, and the
+dependent-launch design, a clear kernel then the raster kernel as its
+programmatic dependent; K4: the key design's cuts only); the first
+whose every substitution applies once is taken, and a cut that fits no
+variant of the tree's source is reported under ``skipped``:
 
+  * K1 ``clear only``: the map is cleared and no robot is rasterized
+    (the memset design: the memset alone; the dependent-launch design:
+    the clear kernel alone);
+  * K1 ``no overlap`` (dependent-launch design): the raster kernel is
+    launched as an ordinary kernel after the clear, not as its
+    programmatic dependent;
+  * K1 ``no corner pass``: the bitmap window's corner is one point's cell
+    minus 64 (the memset design: the robot's first point; the
+    dependent-launch design: lane 0's own min per warp) instead of the min over the robot's points;
+  * K1 ``no global atomics``: the distinct cells are found but never
+    added to the map;
+  * K4 ``no scatter``: the peds are read, tested and listed, the map is
+    cleared and stored, but no (ped, pixel) pair is tested;
+  * K4 ``stores only``: no ped is read, every pixel is stored empty;
+  * K4 ``256 threads``: blocks of 256 threads instead of 512 (what the
+    wider block buys);
   * K3 ``no walks``: the slots a thread's first two visits leave undecided
     are never walked (the warp-cooperative walk's cost);
   * K3 ``no tests``: every slot is written 200 without a test (the store
@@ -15,11 +37,19 @@ to apply), ablated copies that give wrong maps on purpose:
   * K2 ``stores only``: no slot arithmetic, the pre-pass and the bitmap
     staging kept (the cost of the per-slot arithmetic, as the difference).
 
-Each runs on the inputs of chip_smoke.py's selfcheck (the bench200 reset
-with every odd robot pushed onto its even neighbour) and is timed with
-CUDA events, in turns: the kernel, the ablations, then again in reverse.
-Also times the pre-pass and the fill of K2 apart with torch.profiler.
-Prints one JSON line; with ``--out`` also writes it there.
+Also measures the packed-map composition (``raster.pack_layers``, the
+elementwise passes over the map that follow K1) at the bench200ped reset:
+its device operations and device ms per call.
+
+The inputs are chip_smoke.py's: K1 on the crowded bench200 poses, K2 and
+K3 on their packed map and thresholds, K4 on the bench200ped ties case.
+Each C entry point is timed with ``chip_smoke.cuda_ms`` (device time, the
+host's enqueue hidden behind a sleep kernel), in turns: the kernels, the
+ablations, then again in reverse.  K1's and K4's wrappers are also timed
+both ways: ``cuda_ms``, and events around a plain loop of calls, which is
+paced by the host when the wrapper's host work outlasts its kernel.  Also
+times the device parts of K1 and K2 with torch.profiler.  Prints one JSON
+line; with ``--out`` also writes it there.
 """
 
 from __future__ import annotations
@@ -33,59 +63,183 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ABLATIONS = {
+    "raster": {   # variants: the memset design, then the dependent launch
+        "clear only": (
+            (("  if (n > 0 && p > 0) {", "  if (false) {"),),
+            (("  if (err != cudaSuccess || n <= 0 || p <= 0) return (int)err;",
+              "  return (int)err;"),),
+        ),
+        "no overlap": (
+            (("  attr.val.programmaticStreamSerializationAllowed = 1;",
+              "  attr.val.programmaticStreamSerializationAllowed = 0;"),),
+        ),
+        "no corner pass": (
+            (("    m0 = INT_MAX;\n    n0 = INT_MAX;",
+              "    m0 = cells[(size_t)r * p * 2] - 64;\n"
+              "    n0 = cells[(size_t)r * p * 2 + 1] - 64;"),
+             ("      atomicMin(&m0, m);\n      atomicMin(&n0, n);", "")),
+            (("  const int wm = __reduce_min_sync(0xffffffffu, mloc);\n"
+              "  const int wn = __reduce_min_sync(0xffffffffu, nloc);",
+              "  const int wm = mloc - 64, wn = nloc - 64;"),),
+        ),
+        "no global atomics": (
+            (("    if (!(old & mask)) atomicAdd(",
+              "    if (!(old & mask) && r < 0) atomicAdd("),),
+            (("        atomicAdd(&out[(size_t)a[k].x * w + a[k].y], contrib);",
+              "        ;"),
+             ("      atomicAdd(&out[(size_t)b.x * w + b.y], contrib);",
+              "      ;")),
+        ),
+    },
+    "pedmap": {
+        "no scatter": (
+            (("    for (int c = warp; c < cnt; c += PM_WARPS) {",
+              "    for (int c = warp; c < 0; c += PM_WARPS) {"),),
+        ),
+        "256 threads": (
+            (("#define PM_THREADS 512", "#define PM_THREADS 256"),
+             ("#define PM_WARPS (PM_THREADS / 32)",    # the key design only
+              "#define PM_WARPS (PM_THREADS / 32)")),
+        ),
+        "stores only": (
+            (("  for (int base = 0; base < m; base += PM_THREADS, ++tile) {",
+              "  for (int base = 0; base < 0; base += PM_THREADS, ++tile) {"),),
+        ),
+    },
     "paint": {
-        "no walks": ("        else if (lo[k] + 2 < lo[k + 1]) pend |= 1u << k;",
-                     "        else if (false) pend |= 1u << k;"),
-        "no tests": ("      if (lo[k] < lo[k + 1]) {\n"
-                     "        float x = visit_value(first[k], th);",
-                     "      if (false) {\n"
-                     "        float x = visit_value(first[k], th);"),
+        "no walks": (
+            (("        else if (lo[k] + 2 < lo[k + 1]) pend |= 1u << k;",
+              "        else if (false) pend |= 1u << k;"),),
+        ),
+        "no tests": (
+            (("      if (lo[k] < lo[k + 1]) {\n"
+              "        float x = visit_value(first[k], th);",
+              "      if (false) {\n"
+              "        float x = visit_value(first[k], th);"),),
+        ),
     },
     "fill": {
-        "no map reads": ("  const int v = set ? __ldg(map + (size_t)cm * w + cn) : 1;",
-                         "  const int v = 1;"),
-        "stores only": ("    if (j0 < n_fill) {", "    if (false) {"),
+        "no map reads": (
+            (("  const int v = set ? __ldg(map + (size_t)cm * w + cn) : 1;",
+              "  const int v = 1;"),),
+        ),
+        "stores only": ((("    if (j0 < n_fill) {", "    if (false) {"),),),
     },
 }
 
 
+def ablate(src: str, variants):
+    """``src`` with the first variant whose every substitution applies
+    exactly once, or None."""
+    for subs in variants:
+        if all(src.count(old) == 1 for old, _ in subs):
+            for old, new in subs:
+                src = src.replace(old, new)
+            return src
+    return None
+
+
+def paced_ms(fn, reps: int) -> float:
+    """Events around a plain loop of ``reps`` calls (after one warm-up):
+    the host's enqueue rate when it is slower than the device."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_parts(fn, reps: int = 10) -> dict:
+    """Mean device time per call of each device operation of fn()."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / reps / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def pack_cost(env, state, reps: int = 10) -> dict:
+    """Device operations and device ms per call of the packed-map
+    composition (``raster.pack_layers``) on ``state``'s layers."""
+    import torch
+
+    from img_env_tpu_torch.ops import raster
+
+    lay = env._layers(state)
+    h, w = lay.packed.shape
+    count, ids = raster.robot_maps(lay.robot_cells, lay.robot_cells_valid,
+                                   h, w)
+    fn = lambda: raster.pack_layers(lay.obs_map, lay.ped_strong,
+                                    lay.ped_weak, count, ids)
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"device_ops": len(dev) / reps,
+            "device_ms": sum(e.time_range.elapsed_us() for e in dev)
+            / 1e3 / reps}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=REPO)
     ap.add_argument("--out", default=None)
     ap.add_argument("--reps", type=int, default=30)
     args = ap.parse_args()
+    # chip_smoke (inputs, timer) from this repository; the package and its
+    # kernel sources from the tree under test
     sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    sys.path.insert(0, os.path.abspath(args.tree))
 
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("kernel_ablations: no CUDA device")
-    import chip_smoke as cs
     from img_env_tpu_torch import EnvConfig, NavEnv
-    from img_env_tpu_torch.ops import kernels, polar
+    from img_env_tpu_torch.ops import kernels, pedmap, polar, raster
 
     kernels.library()
     tmp = os.path.join(kernels.BUILD_ROOT, "ablations")
     os.makedirs(tmp, exist_ok=True)
-    builds = []
+    builds, skipped = [], []
     for name, cuts in ABLATIONS.items():
-        src = open(os.path.join(kernels.CSRC, f"{name}.cu")).read()
-        for cut, (old, new) in cuts.items():
-            if src.count(old) != 1:
-                sys.exit(f"kernel_ablations: {name} {cut!r} does not apply")
+        with open(os.path.join(kernels.CSRC, f"{name}.cu")) as f:
+            src = f.read()
+        for cut, variants in cuts.items():
+            cut_src = ablate(src, variants)
+            if cut_src is None:
+                skipped.append(f"{name}: {cut}")
+                cs.log(f"# {name} {cut!r}: fits no variant of this tree")
+                continue
             path = os.path.join(tmp, f"{name}_{len(builds)}.cu")
             with open(path, "w") as f:
-                f.write(src.replace(old, new))
+                f.write(cut_src)
             builds.append((name, cut, path, path[:-3] + ".so"))
     kernels._run_all([[kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o",
                        so, cu] for _, _, cu, so in builds])
 
-    env = NavEnv(EnvConfig.from_dict(cs.BENCH200))
+    env = NavEnv(EnvConfig.from_dict(cs.BENCH200), "cuda")
     state, _ = env.reset()
     st, t = env.statics, env.tables
-    poses = state.robots.pose.clone()
-    poses[1::2, :2] = poses[0::2, :2] + 0.1
+    poses = cs.crowded_poses(state.robots.pose)
     crowded = state._replace(robots=state.robots._replace(pose=poses))
     fargs = cs.fill_args(env, env._layers(crowded).packed, poses)
     occ = polar.fill_sorted_kernel(*fargs)
@@ -100,9 +254,30 @@ def main() -> None:
     fill_out = torch.empty((n, n_slots), dtype=torch.bool, device="cuda")
     paint_out = torch.empty((n, st.painter.n_slots), dtype=torch.float32,
                             device="cuda")
+    cells = cs.raster_cases(env, state.robots.pose)[1][1]
+    valid = t.robot_mask
+    raster_out = torch.empty((h, w), dtype=torch.int32, device="cuda")
+
+    env_p = NavEnv(EnvConfig.from_dict(cs.BENCH200PED), "cuda")
+    state_p, _ = env_p.reset()
+    hs, r_img = (int(env_p.cfg.ped_image_size[0]),
+                 float(env_p.cfg.ped_image_r))
+    res_p = 6.0 / hs
+    base = cs.pedmap_cases(env_p, state_p)[1][1]
+    ped_out = torch.empty((n, 3, hs, hs), dtype=torch.float32, device="cuda")
 
     def call(name, fn):
         stream = torch.cuda.current_stream().cuda_stream
+        if name == "raster":
+            return lambda: fn(cells.data_ptr(), valid.data_ptr(), n,
+                              cells.shape[1], h, w, raster_out.data_ptr(),
+                              stream)
+        if name == "pedmap":
+            return lambda: fn(*(x.data_ptr() for x in base), n,
+                              base[0].shape[1], float(np.float32(res_p)),
+                              float(np.float32(1.0) / np.float32(res_p)),
+                              float(np.float32(r_img)), pedmap._r2(r_img),
+                              pedmap.HALF, hs, ped_out.data_ptr(), stream)
         if name == "fill":
             return lambda: fn(maps.data_ptr(), bits.data_ptr(), 1, h, w,
                               *(x.data_ptr() for x in fargs[1:5]), n,
@@ -128,18 +303,29 @@ def main() -> None:
                 sys.exit(f"kernel_ablations: {name} {cut!r} failed to launch")
             times.setdefault(f"{name}: {cut}", []).append(
                 cs.cuda_ms(run, args.reps))
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            polar.fill_sorted_kernel(*fargs)
-        torch.cuda.synchronize()
-    parts = {e.key: e.device_time_total / e.count / 1e3
-             for e in prof.key_averages() if e.device_time_total > 0}
-    out = {"card": cs.card_line(), "ms": times, "fill_parts_ms": parts}
-    for k, v in times.items():
+    wrappers = {
+        "raster": lambda: raster.robot_maps_kernel(cells, valid, h, w),
+        "pedmap": lambda: pedmap.ped_map_kernel(*base, res_p, r_img, hs)}
+    wrapper_ms = {}
+    for name, fn in list(wrappers.items()) * 2:
+        wrapper_ms.setdefault(f"{name}: cuda_ms", []).append(
+            cs.cuda_ms(fn, args.reps))
+        wrapper_ms.setdefault(f"{name}: paced loop", []).append(
+            paced_ms(fn, args.reps))
+    parts = {"raster": device_parts(wrappers["raster"]),
+             "fill": device_parts(lambda: polar.fill_sorted_kernel(*fargs))}
+    out = {"card": cs.card_line(), "tree": args.tree, "ms": times,
+           "wrapper_ms": wrapper_ms, "device_parts_ms": parts,
+           "skipped": skipped}
+    if hasattr(raster, "pack_layers"):
+        out["pack_layers"] = pack_cost(env_p, state_p)
+        cs.log(f"# packed-map composition at bench200ped: "
+               f"{out['pack_layers']}")
+    for k, v in list(times.items()) + list(wrapper_ms.items()):
         cs.log(f"# {k}: {', '.join(f'{x:.4f}' for x in v)} ms")
-    for k, v in parts.items():
-        cs.log(f"# K2 part {k[:40]}: {v:.4f} ms")
+    for kernel, p in parts.items():
+        for k, v in p.items():
+            cs.log(f"# {kernel} device part {k[:40]}: {v:.4f} ms")
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

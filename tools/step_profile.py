@@ -12,9 +12,10 @@ runs twice: once for the host ms per step (run_path's own clock, ending in
 a synchronize), and once with torch.profiler started at the first timed
 step's act, which gives the device operations, the device busy time (the
 sum of the device events' durations on the one stream) and the device
-time of K2 and K3 (their kernels before and after the slot-order redesign,
-by name) per step.  The profiled window also holds run_path's final
-checksum test (a few operations).  Prints one JSON line; with ``--out``
+time per step of K1-K4 (their kernels by name, before and after each
+redesign) and of the step's memsets (K1's memset design cleared its map
+with one).  The profiled window also holds run_path's final checksum
+test (a few operations).  Prints one JSON line; with ``--out``
 also writes it there.
 """
 
@@ -26,8 +27,13 @@ import os
 import subprocess
 import sys
 
-K2_K3 = ("fill_sorted_kernel", "paint_rows_kernel", "occupancy_bits_kernel",
-         "fill_bits_kernel", "paint_slots_kernel")
+KERNELS = {
+    "K1": ("raster_robots_kernel", "clear_map_kernel"),
+    "K2": ("fill_sorted_kernel", "occupancy_bits_kernel", "fill_bits_kernel"),
+    "K3": ("paint_rows_kernel", "paint_slots_kernel"),
+    "K4": ("pedmap_kernel",),
+    "memset": ("Memset",),
+}
 WARMUP = 3
 
 
@@ -82,11 +88,14 @@ def main() -> None:
         host_ms = cs.run_path(env, ctl, WARMUP, args.steps, (), **kw).ms_step
         dev = profiled(env, ctl, **kw)
         us = lambda evs: sum(e.time_range.elapsed_us() for e in evs)
-        k23 = [e for e in dev if any(k in e.name for k in K2_K3)]
+        per_step = lambda names: us(
+            [e for e in dev if any(k in e.name for k in names)]
+        ) / 1e3 / args.steps
         cell = {"ms_per_step_host": host_ms,
                 "device_ops_per_step": len(dev) / args.steps,
                 "device_busy_ms_per_step": us(dev) / 1e3 / args.steps,
-                "k2_k3_ms_per_step": us(k23) / 1e3 / args.steps}
+                "kernel_ms_per_step": {k: per_step(names)
+                                       for k, names in KERNELS.items()}}
         out["cells"][name] = cell
         cs.log(f"# {args.tree} {name}: {cell}")
         del env, ctl

@@ -270,8 +270,13 @@ def nbytes(*tensors) -> int:
 
 
 def fill_args(env, packed, poses, nps=None):
+    """K2's arguments, with the pose terms as ``polar.fill_sorted`` makes
+    them (glibc's sin/cos bits, ops/f32.py)."""
+    from img_env_tpu_torch.ops import f32
+
     ps, t = env.statics.polar, env.tables.polar
-    return (packed, torch.cos(poses[:, 2]), torch.sin(poses[:, 2]),
+    sin, cos = f32.sin_cos(poses[:, 2])
+    return (packed, cos, sin,
             poses[:, 0].contiguous(), poses[:, 1].contiguous(), t.pix_x,
             t.pix_y, int(ps.n_fill_slots), env.statics.resolution, nps)
 
@@ -299,25 +304,43 @@ def thresholds(env, occ):
     return painter.hit_steps(env.statics.painter, env.tables.painter, *aux)
 
 
-def check_paint(name, env, s_hit, s_tail):
-    """K3 bit-equal to its twin on one set of thresholds; returns both."""
+def block_tables(env):
+    """K5's tables (the gen-1 64-slot blocks) for ``env``'s painter."""
+    from img_env_tpu_torch.ops import painter
+
+    pst = env.statics.painter
+    return painter.make_painter_tables(
+        pst, painter.PaintBlocks.build(pst, env.statics.view_params.range_total),
+        env.device)
+
+
+def check_paint(name, env, s_hit, s_tail, tb=None):
+    """K3, and K5 over ``tb`` (K5's tables for ``env``) where given, each
+    bit-equal to their twin on one set of thresholds; returns K3's output,
+    the twin's and K5's."""
     from img_env_tpu_torch.ops import painter
 
     pst, t = env.statics.painter, env.tables.painter
-    v_k = painter.paint_slots_kernel(t, s_hit, s_tail, pst.n_slots)
     v_t = painter.paint_sorted(pst, t, s_hit, s_tail)
-    mism = int((v_k != v_t).sum())
-    log(f"# K3 paint, {name}: {mism} mismatched slots of {v_k.numel()}; "
-        f"values {sorted(torch.unique(v_k).tolist())}")
-    if mism:
-        raise AssertionError(f"K3 paint kernel != twin ({name})")
-    return v_k, v_t
+    outs = [painter.paint_slots_kernel(t, s_hit, s_tail, pst.n_slots)]
+    if tb is not None:
+        outs.append(painter.paint_blocks_kernel(tb, s_hit, s_tail,
+                                                pst.n_slots))
+    for kernel, v_k in zip(("K3 paint", "K5 block paint"), outs):
+        mism = int((v_k != v_t).sum())
+        log(f"# {kernel}, {name}: {mism} mismatched slots of {v_k.numel()}; "
+            f"values {sorted(torch.unique(v_k).tolist())}")
+        if mism:
+            raise AssertionError(f"{kernel} kernel != twin ({name})")
+    return outs[0], v_t, outs[-1]
 
 
-def k3_tests(t, s_hit, s_tail, n_slots):
-    """Visit tests K3's walk needs for these thresholds: per robot and
-    slot, its visits down to the first that writes (all of them when none
-    writes)."""
+def walk_tests(t, s_hit, s_tail, n_slots):
+    """Visit tests the descending walk (K3's, and K5's over the same
+    visits) needs for these thresholds: per robot and slot, its visits
+    down to the first that writes (all of them when none writes).  Returns
+    (tests, walked): ``walked`` counts the (robot, slot) pairs that the
+    first two visits leave undecided, which a warp walks together."""
     off, visits = t.slots
     counts = (off[1:] - off[:-1]).long()
     slot = torch.repeat_interleave(
@@ -330,7 +353,19 @@ def k3_tests(t, s_hit, s_tail, n_slots):
     first = torch.full((s_hit.shape[0], n_slots), 1 << 30,
                        dtype=torch.int64, device=off.device).scatter_reduce(
         1, slot[None].expand_as(need), need, "amin")
-    return int(torch.where(counts == 0, 0, first).sum())
+    first = torch.where(counts == 0, 0, first)
+    return int(first.sum()), int((first > 2).sum())
+
+
+def minor_run_thresholds(s_hit, s_tail):
+    """The thresholds with two of every three beams hit at step 0 and a
+    minor run to the last step (s_tail = 2**14 - 1): their visits after the
+    first step write nothing, so a slot's top visits often fall in minor
+    runs and its warp walks down its list to the first writer."""
+    sh, st = s_hit.clone(), s_tail.clone()
+    sel = torch.arange(sh.shape[1], device=sh.device) % 3 != 0
+    sh[:, sel], st[:, sel] = 0, 2 ** 14 - 1
+    return sh, st
 
 
 def k3_subsets(env, s_hit, s_tail):
@@ -463,6 +498,11 @@ def selfcheck(env, state, crowds):
     occ_k = check_fill("crowded poses", args)
     edge = map_edge_poses(crowded, h, w, res)
     check_fill("robots on the map edge", fill_args(env, packed, edge))
+    unwrapped = crowded.clone()       # yaw is not wrapped as robots turn
+    unwrapped[:, 2] += 2 * torch.pi * torch.arange(-3, 3, device=poses.device
+                                                  ).repeat(n // 6 + 1)[:n]
+    check_fill("yaws unwrapped by up to 3 turns", fill_args(env, packed,
+                                                            unwrapped))
     crowd_occ = {}
     for name, env_c, state_c in crowds:
         crowd_occ[name] = check_fill(name, fill_args(
@@ -482,24 +522,34 @@ def selfcheck(env, state, crowds):
                           + 4 * 4 * n + n * n_slots,
                           10 * n * nf + 2 * maps.numel()))
 
-    # K3: thresholds from the raycast of the crowded occupancy (timed),
-    # from the crowd states, and forced: no beam hits, every beam hits at
-    # its first step
+    # K3 and K5 (the gen-1 64-slot blocks; the same twin): thresholds from
+    # the raycast of the crowded occupancy (timed), from the crowd states,
+    # and forced: no beam hits, every beam hits at its first step, and top
+    # visits in minor runs (the warps' walks)
+    tb = block_tables(env)
     s_hit, s_tail = thresholds(env, occ_k)
-    v_k, v_t = check_paint("bench200 crowded", env, s_hit, s_tail)
+    v_k, v_t, v_b = check_paint("bench200 crowded", env, s_hit, s_tail, tb)
     err = float((v_k - v_t).abs().max())
     for name, env_c, _ in crowds:
-        check_paint(name, env_c, *thresholds(env_c, crowd_occ[name]))
-    r_beams, n_steps = s_hit.shape[1], st.painter.n_steps
+        check_paint(name, env_c, *thresholds(env_c, crowd_occ[name]),
+                    block_tables(env_c))
     miss = torch.full_like(s_hit, 2 ** 14)
-    check_paint("no beam hits", env, miss, miss)
+    check_paint("no beam hits", env, miss, miss, tb)
     zero = torch.zeros_like(s_hit)
     tail0 = t.painter.nxt[:, 0][None].expand_as(s_hit).to(torch.int16)
-    check_paint("every beam hits at step 0", env, zero, tail0.contiguous())
+    check_paint("every beam hits at step 0", env, zero, tail0.contiguous(),
+                tb)
+    minor = minor_run_thresholds(s_hit, s_tail)
+    check_paint("top visits in minor runs", env, *minor, tb)
+    walked = walk_tests(t.painter, *minor, st.painter.n_slots)[1]
+    log(f"# minor runs: {walked} (robot, slot) pairs walked by their warp")
+    if walked == 0:
+        raise AssertionError("the minor-run case walks no slot")
     subsets = k3_subsets(env, s_hit, s_tail)
-    tests = k3_tests(t.painter, s_hit, s_tail, st.painter.n_slots)
-    log(f"# K3 walk: {tests / n:.1f} visit tests per robot "
-        f"({t.painter.slots[1].numel()} visits)")
+    tests, walked = walk_tests(t.painter, s_hit, s_tail, st.painter.n_slots)
+    log(f"# K3 and K5 walk: {tests / n:.1f} visit tests per robot "
+        f"({t.painter.slots[1].numel()} visits), {walked} (robot, slot) "
+        "pairs walked by their warp")
     out["paint"] = (err, cuda_ms(lambda: painter.paint_slots_kernel(
         t.painter, s_hit, s_tail, st.painter.n_slots), 20),
         cuda_ms(lambda: painter.paint_sorted(st.painter, t.painter, s_hit,
@@ -507,19 +557,12 @@ def selfcheck(env, state, crowds):
         *bound(nbytes(s_hit, s_tail, *t.painter.slots, v_k),
                4 * tests + v_k.numel()))
     out["paint_subsets"] = subsets
-
-    # K5: the same thresholds through the gen-1 64-slot blocks; its twin
-    # is the same dense decode
-    tb = painter.make_painter_tables(
-        st.painter, painter.PaintBlocks.build(st.painter, r_beams),
-        poses.device)
-    v_b = painter.paint_blocks_kernel(tb, s_hit, s_tail, st.painter.n_slots)
-    mism = int((v_b != v_t).sum())
-    log(f"# K5 block paint: {mism} mismatched slots of {v_b.numel()} "
-        f"({tb.blocks[0].shape[0]} blocks, {tb.blocks[4].shape[0]} window "
-        "rows)")
-    if mism:
-        raise AssertionError("K5 block paint kernel != twin")
+    # K5's operations: the same walk, one per table entry (compacted into
+    # the walk's lists), one per output slot
+    n_wide, _, _, cap = tb.block_sizes
+    log(f"# K5 layout: {tb.blocks[0].shape[0]} blocks ({n_wide} wide, "
+        f"{int((tb.blocks[2] == 0).sum())} constant-200), "
+        f"{tb.blocks[4].shape[0]} window rows, at most {cap} visits a block")
     out["paint_block"] = (
         float((v_b - v_t).abs().max()),
         cuda_ms(lambda: painter.paint_blocks_kernel(
@@ -527,7 +570,7 @@ def selfcheck(env, state, crowds):
         cuda_ms(lambda: painter.paint_sorted(st.painter, tb, s_hit, s_tail),
                 3),
         *bound(nbytes(s_hit, s_tail, *tb.blocks, v_b),
-               4 * n * int((tb.blocks[4] != 0).sum())))
+               4 * tests + tb.blocks[4].numel() + v_b.numel()))
     return out
 
 

@@ -52,11 +52,13 @@
 //  times it without the map reads and without the arithmetic).
 
 // The coordinate math uses explicit round-to-nearest intrinsics, so nvcc
-// cannot contract c*bx - s*by + px into an FMA: every product and sum is
-// its own f32 rounding, as in the plain torch twin, and a coordinate on a
-// cell border lands in the same cell.  "/ res" is a product with the f32
-// reciprocal inv_res, which is how XLA compiles the JAX package's division
-// by the constant resolution.
+// contracts nothing on its own: the rotation is exactly the form XLA's CPU
+// build computes for the JAX package, fma(c, bx, -(s*by)) + px and
+// fma(s, bx, c*by) + py (one fused multiply-add on the other product, then
+// the translation), as the plain torch twin computes it, so a coordinate
+// on a cell border lands in the same cell.  "/ res" is a product with the
+// f32 reciprocal inv_res, which is how XLA compiles the JAX package's
+// division by the constant resolution.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,8 +101,8 @@ __device__ __forceinline__ unsigned fill_one(
     float bx, float by, float c, float s, float x0, float y0, float inv_res,
     int h, int w, int words, const unsigned* staged,
     const unsigned* __restrict__ bits, const int* __restrict__ map, int rid) {
-  const float wx = __fadd_rn(__fsub_rn(__fmul_rn(c, bx), __fmul_rn(s, by)), x0);
-  const float wy = __fadd_rn(__fadd_rn(__fmul_rn(s, bx), __fmul_rn(c, by)), y0);
+  const float wx = __fadd_rn(__fmaf_rn(c, bx, -__fmul_rn(s, by)), x0);
+  const float wy = __fadd_rn(__fmaf_rn(s, bx, __fmul_rn(c, by)), y0);
   const int cm = round_half_away(__fmul_rn(wx, inv_res));
   const int cn = round_half_away(__fmul_rn(wy, inv_res));
   const bool in = (unsigned)cm < (unsigned)h && (unsigned)cn < (unsigned)w;

@@ -346,14 +346,18 @@ class NavEnv:
                 st.painter, st.view_params.range_total)
         else:
             layout = painter_mod.PaintSlots.build(st.painter)
+        # XLA folds the JAX package's cos/sin of these constant float32
+        # angles at compile time, correctly rounded: float64 cos/sin of the
+        # float32 angle, rounded to float32
         ang = torch.as_tensor(st.view_statics.laser.angles,
-                              dtype=torch.float32, device=dev)
+                              dtype=torch.float32, device=dev).double()
         self.tables = SensorTables(
             polar=polar_mod.make_tables(st.polar, own_mask, dev),
             painter=painter_mod.make_painter_tables(st.painter, layout, dev),
             robot_points=torch.as_tensor(st.robot_points, device=dev),
             robot_mask=torch.as_tensor(st.robot_mask, device=dev),
-            beam_dirs=torch.stack([torch.cos(ang), torch.sin(ang)], -1))
+            beam_dirs=torch.stack([torch.cos(ang), torch.sin(ang)],
+                                  -1).float())
         self.crowd = make_crowd_tables(st, cfg, dev)
         self.scene_type = (cfg.ped_sim.type if cfg.ped_sim.total > 0
                            else "none")

@@ -33,6 +33,7 @@ import torch
 
 from img_env_tpu_torch.config import EnvConfig
 from img_env_tpu_torch.ops.footprint import bounding_radius
+from img_env_tpu_torch.ops.raster import transform_points
 
 # pose-type codes
 FIX = 0
@@ -473,8 +474,6 @@ def obstacle_corners(obs_pose, spec: SamplerSpec, obs_circle_r):
                           torch.stack([sr[:, 0], sr[:, 2]], -1))
     pb_base = torch.where(is_circ, torch.stack([r, r], -1),
                           torch.stack([sr[:, 1], sr[:, 3]], -1))
-    c, s = torch.cos(obs_pose[:, 2]), torch.sin(obs_pose[:, 2])
-    rot = lambda p: torch.stack(
-        [c * p[:, 0] - s * p[:, 1] + obs_pose[:, 0],
-         s * p[:, 0] + c * p[:, 1] + obs_pose[:, 1]], -1)
+    # the rotation with the JAX package's float32 bits (ops/raster.py)
+    rot = lambda p: transform_points(obs_pose, p[:, None])[:, 0]
     return torch.cat([rot(pa_base), rot(pb_base)], -1)

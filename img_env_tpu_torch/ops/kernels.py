@@ -43,7 +43,8 @@ _SIGNATURES = {
     "pedmap": ("img_env_ped_map",
                (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P)),
     "paint_block": ("img_env_paint_blocks",
-                    (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P)),
+                    (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _P, _I, _P)),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}

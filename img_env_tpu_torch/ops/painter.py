@@ -40,6 +40,8 @@ from img_env_tpu_torch.ops.polar import PolarStatics
 from img_env_tpu_torch.ops.view import LaserStatics, beam_walk_tables
 
 _BIG = np.int32(2 ** 14)       # "no hit" sentinel step (any real s < this)
+NARROW_W = 128                 # K5 walks windows up to this wide 64 robots
+                               # a block, wider ones 4 robots a block
 _BM = 64                       # slots per painter block: windows cover half
                                # the angular drift of 128-slot blocks; the
                                # Pallas kernel packs two neighbouring blocks
@@ -275,7 +277,8 @@ class PaintBlocks(NamedTuple):
     window [rb, rb + w) (beams past R - 1 clip to it, and visit nothing)
     and a [w, BM] int16 table of visit step+1 (0 = not visited).  The
     regions' blocks (their wide slots masked out, constant-200 regions as
-    w = 0), then packs of BM wide slots over all beams: every slot of the
+    w = 0) and packs of BM wide slots over all beams, listed widest window
+    first (the kernel starts the long blocks first): every slot of the
     painted space is in exactly one block."""
 
     slots: np.ndarray       # [nb, BM] int32 slot id (-1 = none)
@@ -283,9 +286,14 @@ class PaintBlocks(NamedTuple):
     w: np.ndarray           # [nb] int32 window width
     off: np.ndarray         # [nb] int64 table offset, in BM-entry rows
     table: np.ndarray       # [sum(w), BM] int16
+    cap: int                # the most visits any one block holds
+    n_wide: int             # leading blocks whose window is wider than
+                            # NARROW_W (the kernel walks fewer robots a block)
 
     @staticmethod
     def build(pst: PainterStatics, n_beams: int) -> "PaintBlocks":
+        if n_beams >= 2 ** 15:      # the kernel packs (position << 16) | T
+            raise ValueError("the block painter takes fewer than 32768 beams")
         wide_ids = np.asarray(pst.wide_slots, np.int32)
         wide = np.zeros(pst.n_slots, bool)
         wide[wide_ids] = True
@@ -309,12 +317,16 @@ class PaintBlocks(NamedTuple):
             rbs.append(0)
             ws.append(n_beams)
             tabs.append(t)
-        w = np.asarray(ws, np.int32)
+        order = np.argsort(-np.asarray(ws), kind="stable")
+        w = np.asarray(ws, np.int32)[order]
         off = np.concatenate([[0], np.cumsum(w)[:-1]]).astype(np.int64)
-        return PaintBlocks(slots=np.stack(slots).astype(np.int32),
-                           rb=np.asarray(rbs, np.int32), w=w, off=off,
+        tabs = [tabs[i] for i in order]
+        return PaintBlocks(slots=np.stack(slots)[order].astype(np.int32),
+                           rb=np.asarray(rbs, np.int32)[order], w=w, off=off,
                            table=np.ascontiguousarray(
-                               np.concatenate(tabs, axis=0).astype(np.int16)))
+                               np.concatenate(tabs, axis=0).astype(np.int16)),
+                           cap=max(int((t != 0).sum()) for t in tabs),
+                           n_wide=int((w > NARROW_W).sum()))
 
 
 class PainterTables(NamedTuple):
@@ -327,7 +339,9 @@ class PainterTables(NamedTuple):
     wide_slots: torch.Tensor               # [ns] int64
     wide_sstep: torch.Tensor               # [ns, R] int16
     slots: Optional[Tuple[torch.Tensor, ...]]    # K3's PaintSlots fields
-    blocks: Optional[Tuple[torch.Tensor, ...]]   # K5's PaintBlocks fields
+    blocks: Optional[Tuple[torch.Tensor, ...]]   # K5's PaintBlocks arrays
+    # K5's launch sizes: (n_wide, widest window, widest other window, cap)
+    block_sizes: Tuple[int, ...] = ()
 
 
 def make_painter_tables(pst: PainterStatics, layout, device) -> PainterTables:
@@ -351,7 +365,10 @@ def make_painter_tables(pst: PainterStatics, layout, device) -> PainterTables:
         wide_slots=t(pst.wide_slots, i64),
         wide_sstep=t(pst.wide_sstep, i16),
         slots=None if blocks else launch,
-        blocks=launch if blocks else None)
+        blocks=launch if blocks else None,
+        block_sizes=((layout.n_wide, int(layout.w.max(initial=0)),
+                      int(layout.w[layout.n_wide:].max(initial=0)),
+                      layout.cap) if blocks else ()))
 
 
 def hit_steps(pst: PainterStatics, t: PainterTables, any_hit, first_c,
@@ -461,19 +478,19 @@ def paint_slots_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
 
 
 def paint_blocks_kernel(t: PainterTables, s_hit, s_tail, n_slots: int):
-    """K5 on the card (csrc/paint_block.cu): [N, n_slots] f32 view
-    values; it reads the thresholds transposed, as int32 [R, N]."""
+    """K5 on the card (csrc/paint_block.cu): [N, n_slots] f32 view values
+    from s_hit / s_tail int16 [N, R] as ``hit_steps`` returns them."""
     _check_thresholds(t, s_hit, s_tail, t.blocks)
-    sh_t = s_hit.to(torch.int32).t().contiguous()
-    st_t = s_tail.to(torch.int32).t().contiguous()
-    kernels.check_cuda(sh_t, st_t, *t.blocks)
+    if s_hit.dtype != torch.int16 or s_tail.dtype != torch.int16:
+        raise ValueError("paint kernel takes int16 s_hit/s_tail")
+    kernels.check_cuda(s_hit, s_tail, *t.blocks)
     slots, rb, w, off, table = t.blocks
     n, n_beams = s_hit.shape
     out = torch.empty((n, n_slots), dtype=torch.float32, device=s_hit.device)
-    kernels.launch("paint_block", sh_t.data_ptr(), st_t.data_ptr(), n,
+    kernels.launch("paint_block", s_hit.data_ptr(), s_tail.data_ptr(), n,
                    n_beams, slots.data_ptr(), rb.data_ptr(), w.data_ptr(),
                    off.data_ptr(), table.data_ptr(), slots.shape[0],
-                   out.data_ptr(), n_slots)
+                   *t.block_sizes, out.data_ptr(), n_slots)
     return out
 
 

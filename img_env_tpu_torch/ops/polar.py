@@ -30,7 +30,7 @@ from img_env_tpu_torch.constants import (
     CELL_SELF_IN_VIEW,
     LASER_MISS_DIST,
 )
-from img_env_tpu_torch.ops import kernels
+from img_env_tpu_torch.ops import f32, kernels
 from img_env_tpu_torch.ops.raster import round_half_away, div_const
 from img_env_tpu_torch.ops.resize import resize_matrix
 from img_env_tpu_torch.ops.view import (
@@ -368,8 +368,10 @@ def fill_sorted_twin(packed, cos, sin, px, py, pix_x, pix_y, n_fill: int,
     n = cos.shape[0]
     nps = nps or n
     bx, by = pix_x[:n_fill][None], pix_y[:n_fill][None]
-    wx = cos[:, None] * bx - sin[:, None] * by + px[:, None]
-    wy = sin[:, None] * bx + cos[:, None] * by + py[:, None]
+    c, s = cos[:, None], sin[:, None]
+    # XLA's contraction of the rotation (raster.transform_points)
+    wx = f32.fma(c, bx, -(s * by)) + px[:, None]
+    wy = f32.fma(s, bx, c * by) + py[:, None]
     cm = round_half_away(div_const(wx, resolution)).to(torch.int64)
     cn = round_half_away(div_const(wy, resolution)).to(torch.int64)
     inside = (cm >= 0) & (cm < h) & (cn >= 0) & (cn < w)
@@ -449,7 +451,7 @@ def fill_sorted(ps: PolarStatics, t: PolarTables, packed, poses,
     zero: K2 for CUDA tensors, its twin for CPU tensors.  Every consumer
     reads occupancy through the gates."""
     poses = poses.to(torch.float32)
-    cos, sin = torch.cos(poses[:, 2]), torch.sin(poses[:, 2])
+    sin, cos = f32.sin_cos(poses[:, 2])
     px, py = poses[:, 0].contiguous(), poses[:, 1].contiguous()
     nf = int(ps.n_fill_slots)
     if packed.is_cuda:

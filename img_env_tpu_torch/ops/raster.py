@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from img_env_tpu_torch.constants import CELL_FREE_MIN
-from img_env_tpu_torch.ops import kernels
+from img_env_tpu_torch.ops import f32, kernels
 
 RASTER_MAX_SPAN = 128     # csrc/raster.cu dedup window (cells per axis)
 
@@ -51,11 +51,18 @@ def world_to_cell(pts, resolution: float):
 
 
 def transform_points(pose, pts):
-    """Rigid transform of base-frame points by pose [..., 3]."""
-    c, s = torch.cos(pose[..., 2]), torch.sin(pose[..., 2])
-    x = c[..., None] * pts[..., 0] - s[..., None] * pts[..., 1] + pose[..., 0:1]
-    y = s[..., None] * pts[..., 0] + c[..., None] * pts[..., 1] + pose[..., 1:2]
-    return torch.stack([x, y], dim=-1)
+    """Rigid transform of base-frame points by pose [..., 3].  In float32
+    the bits are those of the JAX package's CPU build: glibc's sin/cos of
+    the yaw, and each row contracted by XLA into one fused multiply-add,
+    ``x = fma(c, bx, -(s*by)) + px`` and ``y = fma(s, bx, c*by) + py``
+    (ops/f32.py)."""
+    s, c = f32.sin_cos(pose[..., 2])
+    # both rows in one multiply-add over [2, ..., P]
+    rows = torch.stack([c, s])[..., None]
+    cross = torch.stack([-s, c])[..., None]
+    xy = (f32.fma(rows, pts[..., 0], cross * pts[..., 1])
+          + pose[..., :2].movedim(-1, 0)[..., None])
+    return xy.movedim(0, -1).contiguous()
 
 
 def _flat_idx(cells, h: int, w: int):
@@ -176,15 +183,15 @@ def build_layers(obs_map, resolution, robot_pose, robot_points, robot_mask,
                             resolution)
     robot_count, robot_id = robot_maps(r_cells, robot_mask, h, w)
 
-    pb = transform_points(ped_pose, ped_body_points)
-    pl = transform_points(ped_pose, ped_left_points)
-    pr = transform_points(ped_pose, ped_right_points)
-    weak_pts = torch.cat([pb, pl], dim=1)
-    weak_mask = torch.cat([ped_body_mask, ped_left_mask], dim=1)
-    ped_weak = scatter_occupancy(world_to_cell(weak_pts, resolution),
-                                 weak_mask, h, w)
-    ped_strong = scatter_occupancy(world_to_cell(pr, resolution),
-                                   ped_right_mask, h, w)
+    # the body, left-leg (weak) and right-leg (strong) points in one pass
+    n_weak = ped_body_points.shape[1] + ped_left_points.shape[1]
+    p_cells = world_to_cell(transform_points(ped_pose, torch.cat(
+        [ped_body_points, ped_left_points, ped_right_points], dim=1)),
+        resolution)
+    ped_weak = scatter_occupancy(
+        p_cells[:, :n_weak], torch.cat([ped_body_mask, ped_left_mask], dim=1),
+        h, w)
+    ped_strong = scatter_occupancy(p_cells[:, n_weak:], ped_right_mask, h, w)
 
     return OccupancyLayers(
         obs_map=obs_map, ped_strong=ped_strong, ped_weak=ped_weak,

@@ -3,7 +3,7 @@ shapes: robot counts off the warp width, robots on the map edge, robots
 stacked on one pose, footprints at the span limit and more robots than
 the card holds blocks at once (K1); the fill across scenes and with a
 bitmap too large for shared memory (K2); the painter's dense near-sensor
-slots on forced thresholds (K3); ped counts off the shared-memory tile,
+slots on forced thresholds (K3, and K5 on the same); ped counts off the shared-memory tile,
 peds on the +-3 m window edge, exact range ties, no ped in any window and
 600 in one (K4); the gen-1 block painter with wide slots (K5); and the
 scenario sampler on a CUDA generator.
@@ -22,7 +22,7 @@ import torch
 
 from img_env_tpu_torch.config import EnvConfig
 from img_env_tpu_torch.env import observe, sampler
-from img_env_tpu_torch.ops import painter, pedmap, polar, raster, view
+from img_env_tpu_torch.ops import f32, painter, pedmap, polar, raster, view
 from img_env_tpu_torch.ops.footprint import circle_points, rectangle_points
 
 pytestmark = pytest.mark.cuda
@@ -160,7 +160,7 @@ def test_fill_kernel_scenes_and_large_maps(dev, n, h, w, nps):
         rng.uniform(0, h * RES, n), rng.uniform(0, w * RES, n),
         rng.uniform(-3.1, 3.1, n)]).astype(np.float32), device=dev)
     poses[0, :2] = 0.0                                 # on the map corner
-    cos, sin = torch.cos(poses[:, 2]), torch.sin(poses[:, 2])
+    sin, cos = f32.sin_cos(poses[:, 2])
     args = (packed, cos, sin, poses[:, 0].contiguous(),
             poses[:, 1].contiguous(), tp.pix_x, tp.pix_y, ps.n_fill_slots,
             RES, nps)
@@ -169,14 +169,20 @@ def test_fill_kernel_scenes_and_large_maps(dev, n, h, w, nps):
     assert torch.equal(got, want) and bool(want.any())
 
 
-@pytest.mark.parametrize("kind", ["no_hit", "step0", "last", "mixed"])
+@pytest.mark.parametrize("kind", ["no_hit", "step0", "last", "mixed",
+                                  "minor_runs"])
 def test_paint_kernel_forced_thresholds(dev, kind):
-    """K3 at 360 beams (dense near-sensor slots) on forced thresholds: no
-    hit, a hit at every beam's first step, at its last step, and a mix."""
+    """K3 and K5 at 360 beams (dense near-sensor slots, a pack of wide
+    slots) on forced thresholds: no hit, a hit at every beam's first step,
+    at its last step, a mix, and hits at step 0 with minor runs to the last
+    step on two beams of three (top visits that write nothing, so the
+    warps walk the slots' lists)."""
     vp = VP._replace(range_total=360)
     pst = painter.PainterStatics.build(polar.PolarStatics.build(vp,
                                                                 n_chunks=8))
     tt = painter.make_painter_tables(pst, painter.PaintSlots.build(pst), dev)
+    tb = painter.make_painter_tables(pst, painter.PaintBlocks.build(pst, 360),
+                                     dev)
     n, r, s = 37, 360, pst.n_steps
     rng = np.random.default_rng(7)
     if kind == "no_hit":
@@ -184,16 +190,21 @@ def test_paint_kernel_forced_thresholds(dev, kind):
     elif kind == "mixed":
         s_hit = torch.as_tensor(rng.integers(0, s, (n, r)), device=dev)
     else:
-        s_hit = torch.full((n, r), 0 if kind == "step0" else s - 1,
+        s_hit = torch.full((n, r), s - 1 if kind == "last" else 0,
                            device=dev)
     s_tail = torch.gather(tt.nxt[None].expand(n, r, s), 2,
                           s_hit.clamp(0, s - 1)[..., None])[..., 0]
     s_tail = torch.where(s_hit == 2 ** 14, s_hit, s_tail)
     if kind == "mixed":
         s_hit[:, ::3], s_tail[:, ::3] = 2 ** 14, 2 ** 14
+    if kind == "minor_runs":
+        s_tail[:, 1::3], s_tail[:, 2::3] = 2 ** 14 - 1, 2 ** 14 - 1
     s_hit, s_tail = s_hit.to(torch.int16), s_tail.to(torch.int16)
+    want = painter.paint_sorted(pst, tt, s_hit, s_tail)
     got = painter.paint_slots_kernel(tt, s_hit, s_tail, pst.n_slots)
-    assert torch.equal(got, painter.paint_sorted(pst, tt, s_hit, s_tail))
+    assert torch.equal(got, want)
+    got = painter.paint_blocks_kernel(tb, s_hit, s_tail, pst.n_slots)
+    assert torch.equal(got, want)
 
 
 def _peds(n, m, seed, dev):
@@ -278,8 +289,11 @@ def test_pedmap_kernel_other_sizes(dev):
         pedmap.ped_map_kernel(*base, 6.0 / 65, 0.25, 65)
 
 
-@pytest.mark.parametrize("n,beams", [(1, 32), (37, 32), (70, 360)])
+@pytest.mark.parametrize("n,beams", [(1, 32), (37, 32), (70, 360),
+                                     (201, 360)])
 def test_paint_block_kernel_matches_twin(dev, n, beams):
+    """N = 1, N off the 32-robot chunks, and N past 200 with a pack of
+    wide slots (their blocks take 4 robots at a time)."""
     vp = VP._replace(range_total=beams)
     ps = polar.PolarStatics.build(vp, n_chunks=8)
     pst = painter.PainterStatics.build(ps)

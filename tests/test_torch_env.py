@@ -87,8 +87,8 @@ def _assert_obs_exact(obs_t, obs_j):
         want = np.asarray(getattr(obs_j, f))
         assert got.shape == want.shape, f
         np.testing.assert_array_equal(got, want.astype(got.dtype), err_msg=f)
-    np.testing.assert_allclose(obs_t.hit_points.numpy(),
-                               np.asarray(obs_j.hit_points), atol=1e-6)
+    np.testing.assert_array_equal(obs_t.hit_points.numpy(),
+                                  np.asarray(obs_j.hit_points))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

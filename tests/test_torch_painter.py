@@ -148,29 +148,60 @@ def test_paint_twin_robot_chunks(statics):
         a.numpy())
 
 
+# csrc/paint_block.cu: robots a block (a wide block's), warps a block
+ROBOTS, WIDE_ROBOTS, WARPS = 64, 4, 8
+
+
+def _block_lists(blocks, b):
+    """Block b's per-slot visit lists as csrc/paint_block.cu compacts
+    them: warp k scans window positions [lo, hi) downwards (hi = w - k *
+    span), and each slot's visits are stored warp by warp, so the list is
+    (wp, T) in descending wp; each list is checked to hold exactly the
+    slot's visits of the table."""
+    w = int(blocks.w[b])
+    tab = blocks.table[blocks.off[b]:blocks.off[b] + w].astype(np.int64)
+    span = -(-w // WARPS)
+    lists = [[] for _ in range(64)]
+    for k in range(WARPS):
+        hi = max(w - k * span, 0)
+        for row in range(hi - 1, max(hi - span, 0) - 1, -1):
+            for j in np.nonzero(tab[row])[0]:
+                lists[j].append((row, int(tab[row, j])))
+    for j, lst in enumerate(lists):
+        rows = [wp for wp, _ in lst]
+        assert rows == sorted(np.nonzero(tab[:, j])[0].tolist(), reverse=True)
+    return lists
+
+
 def _emulate_blocks(blocks, s_hit, s_tail, n_slots):
-    """csrc/paint_block.cu's loop in numpy: per 64-slot block, walk the
-    window (beams clipped to R - 1), max the key (w << 2) | code per slot,
-    decode."""
+    """csrc/paint_block.cu's walk in numpy, block by block in the layout's
+    order (the n_wide blocks with windows wider than NARROW_W first, 4
+    robots at a time, then the others 64 at a time): per robot and slot,
+    the slot's visits in descending window order (beams clipped to R - 1),
+    the first that writes decides (code 2 -> 255, 3 -> 0, 1 -> 200); no
+    visit or no writer -> 200.  A constant-200 block (w = 0) writes 200."""
     n, r = s_hit.shape
     sh, st = s_hit.astype(np.int64), s_tail.astype(np.int64)
     out = np.full((n, n_slots), np.nan, np.float32)
+    assert (blocks.w[:blocks.n_wide] > painter.NARROW_W).all()
+    assert (blocks.w[blocks.n_wide:] <= painter.NARROW_W).all()
     for b in range(blocks.slots.shape[0]):
-        acc = np.full((n, 64), -1, np.int64)
-        for wp in range(blocks.w[b]):
-            beam = min(blocks.rb[b] + wp, r - 1)
-            T = blocks.table[blocks.off[b] + wp].astype(np.int64)[None, :]
-            h, t = sh[:, beam:beam + 1], st[:, beam:beam + 1]
-            code = np.where(T <= 0, 0, np.where(
-                T <= h, 2, np.where(T == h + 1, 3, np.where(T > t, 1, 0))))
-            acc = np.where(code > 0, np.maximum(acc, (wp << 2) | code), acc)
-        c = acc & 3
-        val = np.where(acc < 0, 200.0, np.where(
-            c == 2, 255.0, np.where(c == 3, 0.0, 200.0)))
-        for g, slot in enumerate(blocks.slots[b]):
-            if slot >= 0:
-                assert np.isnan(out[0, slot]), "slot written twice"
-                out[:, slot] = val[:, g]
+        lists = _block_lists(blocks, b)
+        per = WIDE_ROBOTS if b < blocks.n_wide else ROBOTS
+        for r0 in range(0, n, per):
+            rows = np.arange(r0, min(r0 + per, n))
+            for j, slot in enumerate(blocks.slots[b]):
+                if slot < 0:
+                    continue
+                assert np.isnan(out[r0, slot]), "slot written twice"
+                val = np.full(len(rows), np.nan)
+                for wp, T in lists[j]:
+                    beam = min(int(blocks.rb[b]) + wp, r - 1)
+                    h, t = sh[rows, beam], st[rows, beam]
+                    x = np.where(T <= h, 255.0, np.where(
+                        T == h + 1, 0.0, np.where(T > t, 200.0, np.nan)))
+                    val = np.where(np.isnan(val), x, val)
+                out[rows, slot] = np.where(np.isnan(val), 200.0, val)
     return out
 
 
@@ -289,8 +320,10 @@ def test_paint_slots_layout_covers_every_slot_once(beams):
 
 def _forced(kind, pst, t, n, rng):
     """Thresholds [n, R] int16: 'no_hit' (the 2**14 sentinel), 'step0'
-    (every beam hits at its first step), 'last' (at its last step), or
-    'mixed' (random hits, every third beam missing)."""
+    (every beam hits at its first step), 'last' (at its last step),
+    'mixed' (random hits, every third beam missing), or 'minor_runs' (hits
+    at the first step, two beams of three with a minor run to the last
+    step: their later visits write nothing, so walks go deep)."""
     r, s = pst.globstep.shape[0], pst.n_steps
     big = torch.full((n, r), 2 ** 14, dtype=torch.int64)
     if kind == "no_hit":
@@ -298,19 +331,23 @@ def _forced(kind, pst, t, n, rng):
     if kind == "mixed":
         s_hit = torch.as_tensor(rng.integers(0, s, (n, r)))
     else:
-        s_hit = torch.full((n, r), 0 if kind == "step0" else s - 1)
+        s_hit = torch.full((n, r), s - 1 if kind == "last" else 0)
     s_tail = torch.gather(t.nxt[None].expand(n, r, s), 2,
                           s_hit[..., None])[..., 0]
     if kind == "mixed":
         s_hit[:, ::3], s_tail[:, ::3] = 2 ** 14, 2 ** 14
+    if kind == "minor_runs":
+        s_tail[:, 1::3], s_tail[:, 2::3] = 2 ** 14 - 1, 2 ** 14 - 1
     return s_hit.to(torch.int16), s_tail.to(torch.int16)
 
 
-@pytest.mark.parametrize("kind", ["no_hit", "step0", "last", "mixed"])
+@pytest.mark.parametrize("kind", ["no_hit", "step0", "last", "mixed",
+                                  "minor_runs"])
 def test_paint_slots_decode_forced_thresholds(rng, kind):
-    """The slot-order tiles and the dense near-sensor slots (360 beams)
-    decode to the twin's output on forced thresholds: no hit, a hit at
-    every beam's first step, at its last step, and a random mix."""
+    """The slot-order tiles and the dense near-sensor slots (360 beams),
+    and K5's 64-slot blocks with their pack of wide slots, decode to the
+    twin's output on forced thresholds: no hit, a hit at every beam's
+    first step, at its last step, a random mix, and deep walks."""
     vp = view.ViewParams(*VP._replace(range_total=360))
     pst = painter.PainterStatics.build(polar.PolarStatics.build(vp,
                                                                 n_chunks=8))
@@ -320,6 +357,9 @@ def test_paint_slots_decode_forced_thresholds(rng, kind):
     want = painter.paint(pst, t, s_hit, s_tail)
     got = _emulate_slots(slots, s_hit.numpy(), s_tail.numpy(), pst.n_slots)
     np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(_emulate_blocks(
+        painter.PaintBlocks.build(pst, 360), s_hit.numpy(), s_tail.numpy(),
+        pst.n_slots), want.numpy())
     if kind == "no_hit":       # every visited slot is painted 255
         visited = np.diff(slots.off) > 0
         assert (got[:, visited] == 255).all() and (got[:, ~visited] == 200).all()

@@ -1,4 +1,4 @@
-"""Where K1's, K2's, K3's and K4's time goes, on one NVIDIA GPU.
+"""Where K1's, K2's, K3's, K4's and K5's time goes, on one NVIDIA GPU.
 
     python3 tools/kernel_ablations.py [--tree DIR] [--reps 30] [--out FILE]
 
@@ -35,14 +35,28 @@ variant of the tree's source is reported under ``skipped``:
   * K2 ``no map reads``: the packed map is never read, a set bit counts as
     occupied (the cost of the own-cell test's reads);
   * K2 ``stores only``: no slot arithmetic, the pre-pass and the bitmap
-    staging kept (the cost of the per-slot arithmetic, as the difference).
+    staging kept (the cost of the per-slot arithmetic, as the difference);
+  * K5 ``stores only``: every block is written 200 as a constant-200
+    block is (no table, no threshold, no test: the store floor);
+  * K5 ``constant-200 blocks only``: the blocks with a window return at
+    once (the constant blocks' stores alone);
+  * K5 ``wide blocks only``: only the blocks whose window is wider than
+    ``painter.NARROW_W`` (the 1024-wide blocks, the pack of wide slots, the
+    256-wide blocks) run;
+  * K5 ``no early exit``: every slot with more than two visits is walked
+    by its warp to the end of its list, the first writer not ending the
+    walk (what the descending walk's early exit saves).
 
 Also measures the packed-map composition (``raster.pack_layers``, the
 elementwise passes over the map that follow K1) at the bench200ped reset:
 its device operations and device ms per call.
 
 The inputs are chip_smoke.py's: K1 on the crowded bench200 poses, K2 and
-K3 on their packed map and thresholds, K4 on the bench200ped ties case.
+K3 on their packed map and thresholds, K5 on the same thresholds through
+the gen-1 blocks, K4 on the bench200ped ties case.  K5 is timed only on a
+tree whose K5 reads s_hit / s_tail as int16 [N, R] (the block layout's
+``PainterTables.block_sizes``); on an older tree it is listed under
+``skipped``.
 Each C entry point is timed with ``chip_smoke.cuda_ms`` (device time, the
 host's enqueue hidden behind a sleep kernel), in turns: the kernels, the
 ablations, then again in reverse.  K1's and K4's wrappers are also timed
@@ -116,6 +130,28 @@ ABLATIONS = {
               "        float x = visit_value(first[k], th);",
               "      if (false) {\n"
               "        float x = visit_value(first[k], th);"),),
+        ),
+    },
+    "paint_block": {
+        "stores only": (
+            (("  if (w == 0) {\n    paint_constant(",
+              "  if (true) {\n    paint_constant("),),
+        ),
+        "constant-200 blocks only": (
+            (("    paint_constant(slots, r0, nr, out, n_slots);\n    return;\n  }\n",
+              "    paint_constant(slots, r0, nr, out, n_slots);\n    return;\n  }\n"
+              "  return;\n"),),
+        ),
+        "wide blocks only": (
+            (("  const int w = blk_w[blk], rb = blk_rb[blk];",
+              "  if (!wide) return;\n"
+              "  const int w = blk_w[blk], rb = blk_rb[blk];"),),
+        ),
+        "no early exit": (
+            (("      else pend = a + 2 < b;", "      pend = a + 2 < b;"),
+             ("          res = __shfl_sync(FULL_MASK, x, __ffs(wr) - 1);\n"
+              "          break;",
+              "          res = __shfl_sync(FULL_MASK, x, __ffs(wr) - 1);")),
         ),
     },
     "fill": {
@@ -214,13 +250,18 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ablations: no CUDA device")
     from img_env_tpu_torch import EnvConfig, NavEnv
-    from img_env_tpu_torch.ops import kernels, pedmap, polar, raster
+    from img_env_tpu_torch.ops import kernels, painter, pedmap, polar, raster
 
     kernels.library()
     tmp = os.path.join(kernels.BUILD_ROOT, "ablations")
     os.makedirs(tmp, exist_ok=True)
     builds, skipped = [], []
-    for name, cuts in ABLATIONS.items():
+    names = list(ABLATIONS)
+    if "block_sizes" not in painter.PainterTables._fields:
+        names.remove("paint_block")
+        skipped.append("paint_block: this tree's K5 takes other arguments")
+    for name in names:
+        cuts = ABLATIONS[name]
         with open(os.path.join(kernels.CSRC, f"{name}.cu")) as f:
             src = f.read()
         for cut, variants in cuts.items():
@@ -254,6 +295,10 @@ def main() -> None:
     fill_out = torch.empty((n, n_slots), dtype=torch.bool, device="cuda")
     paint_out = torch.empty((n, st.painter.n_slots), dtype=torch.float32,
                             device="cuda")
+    if "paint_block" in names:
+        tb = painter.make_painter_tables(
+            st.painter, painter.PaintBlocks.build(st.painter, s_hit.shape[1]),
+            "cuda")
     cells = cs.raster_cases(env, state.robots.pose)[1][1]
     valid = t.robot_mask
     raster_out = torch.empty((h, w), dtype=torch.int32, device="cuda")
@@ -283,13 +328,20 @@ def main() -> None:
                               *(x.data_ptr() for x in fargs[1:5]), n,
                               fargs[7], n_slots, inv_res, fargs[5].data_ptr(),
                               fargs[6].data_ptr(), fill_out.data_ptr(), stream)
+        if name == "paint_block":
+            return lambda: fn(s_hit.data_ptr(), s_tail.data_ptr(), n,
+                              s_hit.shape[1],
+                              *(x.data_ptr() for x in tb.blocks),
+                              tb.blocks[0].shape[0], *tb.block_sizes,
+                              paint_out.data_ptr(), st.painter.n_slots,
+                              stream)
         return lambda: fn(s_hit.data_ptr(), s_tail.data_ptr(), n,
                           s_hit.shape[1], off.data_ptr(), visits.data_ptr(),
                           paint_out.data_ptr(), st.painter.n_slots, stream)
 
     runs = [(name, "kernel", getattr(kernels.library(),
                                      kernels._SIGNATURES[name][0]))
-            for name in ABLATIONS]
+            for name in names]
     for name, cut, _, so in builds:
         fn = getattr(ctypes.CDLL(so), kernels._SIGNATURES[name][0])
         fn.argtypes = list(kernels._SIGNATURES[name][1])

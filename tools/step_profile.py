@@ -1,5 +1,6 @@
-"""Device time per control step at bench200, bench200ped and bench200ervo,
-on one NVIDIA GPU, for the tree at ``--tree``.
+"""Device time per control step at bench200, bench200ped, bench200ervo and
+bench200 with ``paint_mode='block'`` (the gen-1 painter, K5), on one
+NVIDIA GPU, for the tree at ``--tree``.
 
     python3 tools/step_profile.py --tree DIR [--steps 5] [--out FILE]
 
@@ -12,7 +13,7 @@ runs twice: once for the host ms per step (run_path's own clock, ending in
 a synchronize), and once with torch.profiler started at the first timed
 step's act, which gives the device operations, the device busy time (the
 sum of the device events' durations on the one stream) and the device
-time per step of K1-K4 (their kernels by name, before and after each
+time per step of K1-K5 (their kernels by name, before and after each
 redesign) and of the step's memsets (K1's memset design cleared its map
 with one).  The profiled window also holds run_path's final checksum
 test (a few operations).  Prints one JSON line; with ``--out``
@@ -32,6 +33,7 @@ KERNELS = {
     "K2": ("fill_sorted_kernel", "occupancy_bits_kernel", "fill_bits_kernel"),
     "K3": ("paint_rows_kernel", "paint_slots_kernel"),
     "K4": ("pedmap_kernel",),
+    "K5": ("paint_blocks_kernel",),
     "memset": ("Memset",),
 }
 WARMUP = 3
@@ -82,7 +84,9 @@ def main() -> None:
     for name, cfg, kw in (
             ("bench200", cs.BENCH200, {}),
             ("bench200ped", cs.BENCH200PED, {"crowd": True}),
-            ("bench200ervo", cs.BENCH200ERVO, {"crowd": True, "beep": True})):
+            ("bench200ervo", cs.BENCH200ERVO, {"crowd": True, "beep": True}),
+            ("bench200 paint_mode=block", dict(cs.BENCH200, paint_mode="block"),
+             {})):
         env = NavEnv(EnvConfig.from_dict(cfg), "cuda")
         ctl = MpcController(env, MppiConfig(horizon=cs.H, samples=cs.K))
         host_ms = cs.run_path(env, ctl, WARMUP, args.steps, (), **kw).ms_step

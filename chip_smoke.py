@@ -47,7 +47,23 @@ beep_r 1.0 and ped_ca_p 0.8 as in img_env_tpu/configs/ervo_crowd.yaml):
      config without and with SFM pedestrians, copies of the shipped
      test.yaml (rvoscene, range_circle poses) and ervo_crowd.yaml
      (ervoscene, beeps), and a dataset scene replaying a seeded synthetic
-     trajectory; each ends with a reset that carries the last state over.
+     trajectory; each ends with a reset that carries the last state over;
+ 11. the scene batch, fast mode and sensor groups: BatchedNavEnv at
+     bench.py's multi-scene line (bench200 with 50 robots a scene, 4
+     scenes) and at 16 scenes of 12 robots, NavEnv at fast bench200 and
+     fast bench200ped (sensor_mode 'fast', 133² views at 0.045 m) and at
+     bench200 with two sensor placements; the kernels at these shapes
+     against their twins (K1 over 4 and 16 scenes in one launch, K2 with
+     each sensor group's in-scene ids and on the fast grid, K3 on each
+     group's and the fast grid's tables, K5 on the fast tables, K4 at 4
+     scenes x 50 robots x 200 peds); 3 warm-up and 10 timed control
+     steps of the scene-batched act and the batch step at 4x50 and
+     16x12 (host syncs made errors through every step; K1 exactly once a
+     step, K2 and K3 once a step), of the two fast paths, and reset + 3
+     steps with the groups (K2 and K3 twice a step); device operations
+     and busy ms per step under torch.profiler; then small scene batches
+     card vs CPU: a 4-scene crowd, 3 scenes with sensor groups, 2 fast
+     scenes and 2 without lasers.
 
 Each path's launch counts are set to 0 just before it and read just after
 (per control step: the reset's launches left out).  Any failed phase
@@ -212,6 +228,30 @@ SMALL_ERVO = dict(
 SMALL_DATASET = dict(SMALL_PED, ped_sim=dict(
     SMALL_PED["ped_sim"], total=4, type="dataset", shape=["circle"],
     size=[[0, 0, 0.17]], max_speed=[1.0]))
+# small configs as scene batches, card vs CPU: (config, S)
+SMALL_BATCHES = {
+    "multi-scene crowd": (SMALL_PED, 4),
+    "sensor groups": (dict(SMALL, robot=dict(
+        SMALL["robot"], sensor_cfgs=[[0.15, 0.0], [-0.1, 0.08],
+                                     [0.15, 0.0], [0.0, 0.0]])), 3),
+    "fast": (dict(SMALL_PED, sensor_mode="fast", fast_sensor_scale=3), 2),
+    "no laser": (dict(SMALL, use_laser=False), 2),
+}
+
+# scene batches, fast mode and sensor groups (bench.py's multi-scene line is bench200 with 50 robots
+# a scene, 4 scenes; benchmarks/multiscene_profile.py:21 the 16 x 12 shape;
+# bench.py's fast lines are bench200 and bench200ped in sensor_mode
+# 'fast'; the sensor groups are tests/test_hetero_sensors.py:24's offsets,
+# even robots on the first, odd on the second)
+MULTI_4X50 = dict(BENCH200, env_name="multi4x50", num_scenes=4,
+                  robot=dict(BENCH200["robot"], total=50))
+MULTI_16X12 = dict(BENCH200, env_name="multi16x12", num_scenes=16,
+                   robot=dict(BENCH200["robot"], total=12))
+FAST200 = dict(BENCH200, env_name="bench200fast", sensor_mode="fast")
+FAST200PED = dict(BENCH200PED, env_name="bench200pedfast",
+                  sensor_mode="fast")
+GROUPS200 = dict(BENCH200, env_name="bench200groups", robot=dict(
+    BENCH200["robot"], sensor_cfgs=[[0.15, 0.0], [-0.1, 0.08]] * 100))
 
 K = 128
 H = 12
@@ -220,6 +260,8 @@ ITERS = 20          # timed crowd steps
 BENCH_ITERS = 10    # timed bench200 steps
 ERVO_ITERS = 12     # timed ERVO steps
 BLOCK_STEPS = 3     # block-painter steps
+BATCH_ITERS = 10    # timed steps of the multi-scene and fast paths
+GROUP_STEPS = 3     # sensor-group steps
 
 
 def log(msg: str) -> None:
@@ -853,12 +895,13 @@ def small_reference(cfg_dict, device, dataset=None):
     """A small config on the card vs the same port on the CPU, from one
     layout, one noise draw and one beep draw per step.  Each step is
     observed from the CPU state on both devices (teacher forcing), so
-    transcendental rounding cannot accumulate.  With peds, the ped maps,
+    transcendental rounding cannot accumulate.  Sensor maps, lasers,
+    collision and arrival codes must be equal.  With peds, the ped maps,
     ped vectors and min distances must be equal and the crowd step within
     PED_TOL; the ORCA crowds' split segments must be equal.  The ERVO
     config's even robots beep.  It ends with a reset on both devices that
     carries the last CPU state over, whose states and observations must be
-    equal.  Returns the worst mismatch fractions and differences."""
+    equal.  Returns the worst differences."""
     from img_env_tpu_torch import EnvConfig, MpcController, MppiConfig, NavEnv
     from img_env_tpu_torch.core.convert import (world_state_from_numpy,
                                                 world_state_to_numpy)
@@ -885,10 +928,10 @@ def small_reference(cfg_dict, device, dataset=None):
     if segs_c is not None and not all(
             torch.equal(a, b.cpu()) for a, b in zip(segs_c, segs_g)):
         raise AssertionError("small config: split segments differ")
-    worst = {"sensor_maps": 0.0, "lasers": 0.0, "actions": 0.0}
+    worst = {"actions": 0.0}
     if peds:
         worst.update(ped_pos=0.0, ped_vel=0.0, beeps=0)
-    exact = ["is_collisions", "is_arrives"]
+    exact = ["sensor_maps", "lasers", "is_collisions", "is_arrives"]
     if peds:
         exact += ["ped_maps", "ped_vector_states", "ped_min_dists"]
 
@@ -896,9 +939,6 @@ def small_reference(cfg_dict, device, dataset=None):
         for f in exact:
             if not torch.equal(getattr(obs_c, f), getattr(obs_g, f).cpu()):
                 raise AssertionError(f"small config: {f} differ")
-        for f in ("sensor_maps", "lasers"):
-            a, b = getattr(obs_c, f), getattr(obs_g, f).cpu()
-            worst[f] = max(worst[f], float((a != b).float().mean()))
 
     ms = ctl_c.init_state()
     for step in range(4):
@@ -929,8 +969,7 @@ def small_reference(cfg_dict, device, dataset=None):
             worst["beeps"] += int(beeps.sum())
         _, obs_g = env_g._observe(to_g(adv_c))
         st_c, obs_c = env_c._observe(adv_c)      # the CPU step
-    if worst["actions"] > 1e-3 or max(worst["sensor_maps"],
-                                      worst["lasers"]) > 0.01:
+    if worst["actions"] > 1e-3:
         raise AssertionError(f"small config: card vs CPU {worst}")
     if peds:
         pos_tol, vel_tol = PED_TOL[scene]
@@ -951,6 +990,252 @@ def small_reference(cfg_dict, device, dataset=None):
     if not torch.equal(st_c.robots.vw_last1, st_g.robots.vw_last1.cpu()):
         raise AssertionError("small config: carried commands differ")
     check_obs(obs_c, obs_g)
+    return worst
+
+
+def scene_axis(state):
+    """One scene's state as a batch of one."""
+    from img_env_tpu_torch.core.state import map_tree
+
+    return map_tree(lambda x: x[None], state)
+
+
+def selfcheck_batches(batches, groups, fast, crowd):
+    """The kernels against their twins at the shapes of the scene
+    batches, the fast grid and the sensor groups.
+    ``batches``: {name: (BatchedNavEnv, states)} of the multi-scene paths
+    (K1 over their scene axis, reset and crowded poses); ``groups``,
+    ``fast``: (NavEnv, state) of bench200 with sensor groups (K2 with each
+    group's in-scene ids, K3 on each group's tables) and of fast bench200
+    (K2, K3 and K5 on the fast grid's tables); ``crowd``: (NavEnv, state)
+    of bench200ped, whose robots and peds give K4's input as 4 scenes of 50
+    robots, each scene with its own 200 peds.  Returns {kernel: {case:
+    ms}} of the timed cases."""
+    from img_env_tpu_torch.env import observe
+    from img_env_tpu_torch.ops import f32, painter, pedmap, polar, raster
+
+    timed = {"raster": {}, "fill": {}, "paint": {}, "paint_block": {},
+             "pedmap": {}}
+    for name, (benv, states) in batches.items():
+        core = benv.core
+        t, res = core.tables, core.statics.resolution
+        h, w = states.obs_map.shape[-2:]
+        pose = states.robots.pose
+        for case, p in (("reset poses", pose),
+                        ("crowded poses", crowded_poses(
+                            pose.reshape(-1, 3)).reshape(pose.shape))):
+            cells = raster.world_to_cell(
+                raster.transform_points(p, t.robot_points), res)
+            got = raster.robot_maps_kernel(cells, t.robot_mask, h, w)
+            want = raster.robot_maps_twin(cells, t.robot_mask, h, w)
+            mism = int((got != want).sum())
+            log(f"# K1 raster, {name} {case}: {mism} mismatched cells of "
+                f"{got.numel()} ({got.shape[0]} scenes), max count "
+                f"{int((got & 0xFFF).max())}")
+            if mism:
+                raise AssertionError(f"K1 raster kernel != twin ({name})")
+        timed["raster"][name] = cuda_ms(lambda: raster.robot_maps_kernel(
+            cells, t.robot_mask, h, w), 50)
+
+    genv, gstate = groups
+    packed = genv._layers(scene_axis(gstate)).packed
+    for gi, (g, tg) in enumerate(zip(genv.statics.sensor_groups,
+                                     genv.group_tables)):
+        poses = gstate.robots.pose[tg.idx]
+        sin, cos = f32.sin_cos(poses[:, 2])
+        args = (packed, cos, sin, poses[:, 0].contiguous(),
+                poses[:, 1].contiguous(), tg.polar.pix_x, tg.polar.pix_y,
+                int(g.polar.n_fill_slots), genv.statics.resolution)
+        occ = polar.fill_sorted_kernel(*args, rids=tg.rids)
+        mism = int((occ != polar.fill_sorted_twin(*args,
+                                                  rids=tg.rids)).sum())
+        log(f"# K2 fill, bench200 sensor group {gi} (sensor {g.sensor}, "
+            f"{len(g.idx)} robots, in-scene ids): {mism} mismatched slots "
+            f"of {occ.numel()}")
+        if mism:
+            raise AssertionError("K2 fill kernel != twin (sensor group)")
+        if gi == 0:
+            timed["fill"]["bench200 group 0"] = cuda_ms(
+                lambda: polar.fill_sorted_kernel(*args, rids=tg.rids), 20)
+        _, _, aux = polar.raycast_batched(g.polar, tg.polar, occ)
+        s_hit, s_tail = painter.hit_steps(g.painter, tg.painter, *aux)
+        v_k = painter.paint_slots_kernel(tg.painter, s_hit, s_tail,
+                                         g.painter.n_slots)
+        mism = int((v_k != painter.paint_sorted(g.painter, tg.painter,
+                                                s_hit, s_tail)).sum())
+        log(f"# K3 paint, bench200 sensor group {gi}: {mism} mismatched "
+            f"slots of {v_k.numel()}")
+        if mism:
+            raise AssertionError("K3 paint kernel != twin (sensor group)")
+
+    fenv, fstate = fast
+    fpacked = fenv._layers(scene_axis(fstate)).packed
+    fargs = fill_args(fenv, fpacked, fstate.robots.pose)
+    focc = check_fill(f"fast bench200 (view {fenv.statics.polar.params.hpx}"
+                      f" px, P'={fenv.statics.polar.n_slots})", fargs)
+    timed["fill"]["fast bench200"] = cuda_ms(
+        lambda: polar.fill_sorted_kernel(*fargs), 20)
+    ftb = block_tables(fenv)
+    fs_hit, fs_tail = thresholds(fenv, focc)
+    check_paint("fast bench200", fenv, fs_hit, fs_tail, ftb)
+    pst, ft = fenv.statics.painter, fenv.tables.painter
+    timed["paint"]["fast bench200"] = cuda_ms(
+        lambda: painter.paint_slots_kernel(ft, fs_hit, fs_tail,
+                                           pst.n_slots), 20)
+    timed["paint_block"]["fast bench200"] = cuda_ms(
+        lambda: painter.paint_blocks_kernel(ftb, fs_hit, fs_tail,
+                                            pst.n_slots), 20)
+
+    cenv, cstate = crowd
+    pos = cstate.peds.pos
+    gen = torch.Generator(device=pos.device)
+    gen.manual_seed(1)
+    vel = torch.rand(pos.shape, generator=gen, device=pos.device) * 2 - 1
+    scenes = torch.stack([pos.roll(50 * k, 0) for k in range(4)])
+    base = [x.reshape(200, -1) for x in observe.peds_in_base(
+        cstate.robots.pose.reshape(4, 50, 3), scenes, vel.expand(4, -1, -1))]
+    hs = int(cenv.cfg.ped_image_size[0])
+    r_img = float(cenv.cfg.ped_image_r)
+    got = pedmap.ped_map_kernel(*base, 6.0 / hs, r_img, hs)
+    want = pedmap.ped_map_twin(*base, 6.0 / hs, r_img, hs)
+    mism = int((got != want).sum())
+    log(f"# K4 ped map, 4 scenes x 50 robots x 200 peds: {mism} mismatched "
+        f"of {got.numel()}, {int((want[:, 0] > 0).sum())} occupied pixels")
+    if mism:
+        raise AssertionError("K4 ped-map kernel != twin (4 x 50)")
+    timed["pedmap"]["4x50"] = cuda_ms(
+        lambda: pedmap.ped_map_kernel(*base, 6.0 / hs, r_img, hs), 50)
+    return timed
+
+
+def device_profile(step, steps: int = 2):
+    """(device operations, device busy ms) per call of ``step`` over
+    ``steps`` calls under torch.profiler; (0, 0.0) when the profiler sees
+    no device events."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (len(dev) / steps,
+            sum(e.time_range.elapsed_us() for e in dev) / 1e3 / steps)
+
+
+def run_batch_path(benv, ctl, warmup: int, iters: int, per_step_expect,
+                   never=()):
+    """A scene batch's control loop: reset + ``warmup`` + ``iters`` control
+    steps (the scene-batched act, then the batch step) with the launch
+    counts set to 0 just before and read just after, host syncs made
+    errors through every step; every step launches each kernel of
+    ``per_step_expect`` exactly that many times (K1 once for all scenes,
+    K2 and K3 once per sensor group) and none of ``never``; then device
+    operations and busy ms per step over 2 profiled steps.  Returns
+    (PathRun, ops per step, busy ms per step)."""
+    from img_env_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    states, obs = benv.reset()
+    at_reset = dict(kernels.LAUNCHES)
+    states0 = states
+    mss = ctl.init_scenes_state(states.obs_map.shape[0])
+    checksum = torch.zeros((), dtype=torch.float64, device=benv.device)
+
+    def control_step():
+        nonlocal states, mss, obs
+        before = dict(kernels.LAUNCHES)
+        actions, mss, costs = ctl.act_scenes(states, mss)
+        states, obs, *_ = benv.step(states, actions)
+        checksum.add_(obs.sensor_maps.sum() + obs.lasers.sum()
+                      + costs.sum())
+        got = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+        bad = {k: got[k] for k in per_step_expect
+               if got[k] != per_step_expect[k]}
+        bad.update({k: got[k] for k in never if got[k]})
+        if bad:
+            raise AssertionError(f"a batch control step launched {bad}, "
+                                 f"expected {per_step_expect}")
+
+    torch.cuda.set_sync_debug_mode("error")
+    for _ in range(warmup):
+        control_step()
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        control_step()
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / max(iters, 1) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    per_step = {k: (v - at_reset[k]) / (warmup + iters)
+                for k, v in launches.items()}
+    ops, busy = device_profile(control_step)
+    if not bool(torch.isfinite(checksum)):
+        raise AssertionError("non-finite batch checksum")
+    return (PathRun(states0, states, ms_step, launches, per_step,
+                    float(checksum), obs, 0.0), ops, busy)
+
+
+def small_batch_reference(cfg_dict, scenes: int, device):
+    """A small config as a scene batch on the card vs the same batch on the
+    CPU, from one set of layouts, one noise draw and one beep draw per
+    step; each step observed from the CPU states on both devices (teacher
+    forcing), the act compared on them too.  Collision and arrival codes,
+    the ped surfaces, sensor maps and lasers exact (the kernels are
+    bit-equal to their twins), actions within 1e-3.  Returns the
+    worst differences."""
+    from img_env_tpu_torch import BatchedNavEnv, EnvConfig, MpcController
+    from img_env_tpu_torch import MppiConfig
+    from img_env_tpu_torch.core.convert import (world_state_from_numpy,
+                                                world_state_to_numpy)
+    from img_env_tpu_torch.mpc.controller import MpcState
+
+    cfg = EnvConfig.from_dict(cfg_dict)
+    peds = cfg.ped_sim.total > 0
+    n = cfg.robot.total
+    env_c, env_g = BatchedNavEnv(cfg, "cpu"), BatchedNavEnv(cfg, device)
+    ctl_c = MpcController(env_c.core, MppiConfig(horizon=H, samples=K))
+    ctl_g = MpcController(env_g.core, MppiConfig(horizon=H, samples=K))
+    to_g = lambda x: world_state_from_numpy(world_state_to_numpy(x), device)
+    samples = [env_c.core.sample_scenario() for _ in range(scenes)]
+    st_c, obs_c = env_c.reset(samples)
+    _, obs_g = env_g.reset([type(x)(*(v.to(device) for v in x))
+                            for x in samples])
+    exact = ["sensor_maps", "lasers", "is_collisions", "is_arrives"] + (
+        ["ped_maps", "ped_vector_states", "ped_min_dists"] if peds else [])
+    worst = {"actions": 0.0}
+
+    def check_obs(obs_c, obs_g):
+        for f in exact:
+            a = getattr(obs_c, f)
+            if a.shape[:2] != (scenes, n):
+                raise AssertionError(f"small batch: bad {f} {a.shape}")
+            if not torch.equal(a, getattr(obs_g, f).cpu()):
+                raise AssertionError(f"small batch: {f} differ")
+
+    ms = ctl_c.init_scenes_state(scenes)
+    for step in range(3):
+        check_obs(obs_c, obs_g)
+        noise = torch.randn((scenes, n, K, H, 2), generator=ctl_c.generator)
+        a_c, ms_next, _ = ctl_c.act_scenes(st_c, ms, noise)
+        a_g, _, _ = ctl_g.act_scenes(to_g(st_c),
+                                     MpcState(ms.nominal.to(device)),
+                                     noise.to(device))
+        worst["actions"] = max(worst["actions"],
+                               float((a_c - a_g.cpu()).abs().max()))
+        ms = ms_next
+        u = torch.rand((scenes, n), generator=env_c.core.generator)
+        adv_c, _, _ = env_c.core.advance_scenes(st_c, a_c, u)
+        _, obs_g = env_g.core.observe_scenes(to_g(adv_c))
+        st_c, obs_c = env_c.core.observe_scenes(adv_c)
+    check_obs(obs_c, obs_g)
+    if worst["actions"] > 1e-3:
+        raise AssertionError(f"small batch: card vs CPU {worst}")
     return worst
 
 
@@ -1086,6 +1371,98 @@ def main() -> None:
         worst = small_reference(cfg_dict, "cuda", ds)
         log(f"# {name} config card vs CPU: worst {worst}")
 
+    # ---- scene batches, fast mode, sensor groups ----
+    from img_env_tpu_torch import BatchedNavEnv
+
+    def make_batch(cfg_dict):
+        t0 = time.perf_counter()
+        benv = BatchedNavEnv(EnvConfig.from_dict(cfg_dict))
+        ctl_b = MpcController(benv.core, MppiConfig(horizon=H, samples=K))
+        t_statics = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        states, _ = benv.reset()
+        torch.cuda.synchronize()
+        log(f"# {cfg_dict['env_name']}: host statics + tables "
+            f"{t_statics:.3f} s, reset of {states.obs_map.shape[0]} scenes "
+            f"{time.perf_counter() - t0:.3f} s")
+        return benv, ctl_b, states
+
+    batches = {"4x50": make_batch(MULTI_4X50),
+               "16x12": make_batch(MULTI_16X12)}
+    env_f, ctl_f, state_f = make(FAST200)
+    env_fp, ctl_fp, state_fp = make(FAST200PED)
+    env_g, ctl_g, state_g = make(GROUPS200)
+    batch_ms = selfcheck_batches(
+        {k: (b[0], b[2]) for k, b in batches.items()}, (env_g, state_g),
+        (env_f, state_f), (env_p, state_p))
+    log(f"# kernel times at these shapes (ms): {batch_ms}")
+
+    batch_runs = {}
+    for name, (benv, ctl_b, _) in batches.items():
+        run_b, ops_b, busy_b = run_batch_path(
+            benv, ctl_b, WARMUP, BATCH_ITERS,
+            {"raster": 1, "fill": 1, "paint": 1},
+            never=("paint_block", "pedmap"))
+        s_, n_ = run_b.state.robots.pose.shape[:2]
+        check_shapes(run_b.obs, {"sensor_maps": (s_, n_, 48, 48),
+                                 "lasers": (s_, n_, 960),
+                                 "vector_states": (s_, n_, 3)})
+        rate = s_ * n_ * K / (run_b.ms_step / 1e3)
+        log(f"# multi-scene {name}: {run_b.ms_step:.3f} ms/step over "
+            f"{BATCH_ITERS} steps (+{WARMUP} warm-up), {rate:.0f} aggregate "
+            f"rollouts/s, device busy {busy_b:.4f} ms and {ops_b:.1f} device "
+            f"operations per step, checksum {run_b.checksum:.6f}, arrived "
+            f"{int(run_b.state.robots.arrive.sum())}/{s_ * n_}, launches "
+            f"per step {run_b.per_step}")
+        batch_runs["multi " + name] = run_b
+
+    def one_step(env_x, ctl_x, state_x):
+        ms0 = ctl_x.init_state()
+
+        def step():
+            actions, _, _ = ctl_x.act(state_x, ms0)
+            env_x.step(state_x, actions)
+        return step
+
+    for name, env_x, ctl_x, crowd in (
+            ("fast bench200", env_f, ctl_f, False),
+            ("fast bench200ped", env_fp, ctl_fp, True)):
+        must = ("raster", "fill", "paint") + (("pedmap",) if crowd else ())
+        run_x = run_path(env_x, ctl_x, WARMUP, BATCH_ITERS, must,
+                         never=("paint_block",) + (() if crowd
+                                                  else ("pedmap",)),
+                         crowd=crowd)
+        ops_x, busy_x = device_profile(one_step(env_x, ctl_x, run_x.state))
+        check_shapes(run_x.obs, {"sensor_maps": (n, 48, 48),
+                                 "lasers": (n, 960)})
+        log(f"# {name} control step: {run_x.ms_step:.3f} ms/step over "
+            f"{BATCH_ITERS} steps (+{WARMUP} warm-up), device busy "
+            f"{busy_x:.4f} ms and {ops_x:.1f} device operations per step, "
+            f"checksum {run_x.checksum:.6f}, view "
+            f"{env_x.statics.polar.params.hpx} px at "
+            f"{env_x.statics.polar.params.resolution} m, launches per step "
+            f"{run_x.per_step}")
+        batch_runs[name] = run_x
+
+    run_g = run_path(env_g, ctl_g, 1, GROUP_STEPS - 1,
+                     ("raster", "fill", "paint"),
+                     never=("paint_block", "pedmap"))
+    if run_g.per_step["fill"] != 2 or run_g.per_step["paint"] != 2:
+        raise AssertionError(f"groups path: K2 / K3 per step "
+                             f"{run_g.per_step}, not once per group")
+    check_shapes(run_g.obs, {"sensor_maps": (n, 48, 48), "lasers": (n, 960)})
+    ops_g, busy_g = device_profile(one_step(env_g, ctl_g, run_g.state))
+    log(f"# bench200 with 2 sensor groups: reset + {GROUP_STEPS} steps, "
+        f"{run_g.ms_step:.3f} ms/step over {GROUP_STEPS - 1}, device busy "
+        f"{busy_g:.4f} ms and {ops_g:.1f} device operations per step, "
+        f"checksum {run_g.checksum:.6f}, launches per step {run_g.per_step}")
+    batch_runs["bench200 groups"] = run_g
+
+    for name, (cfg_dict, scenes) in SMALL_BATCHES.items():
+        worst = small_batch_reference(cfg_dict, scenes, "cuda")
+        log(f"# small {name} batch ({scenes} scenes) card vs CPU: worst "
+            f"{worst}")
+
     src = "img_env_tpu_torch/csrc/"
     meta = {"raster": ("raster.cu", "img_env_tpu/ops/pallas_raster.py:105",
                        launches),
@@ -1100,7 +1477,8 @@ def main() -> None:
                             launches_b)}
     per_step = {"bench200": run.per_step, "bench200ped": run_p.per_step,
                 "bench200ervo": run_e.per_step,
-                "bench200 paint_mode=block": per_step_b}
+                "bench200 paint_mode=block": per_step_b,
+                **{k: r.per_step for k, r in batch_runs.items()}}
     rows = [{"name": name, "route": "cuda", "source": src + cu,
              "replaces": replaces, "launches": runs[name],
              "launches_per_step": {p: c[name] for p, c in per_step.items()},
@@ -1108,6 +1486,7 @@ def main() -> None:
              "plain_ms": checks[name][2], "bound_ms": checks[name][3],
              "bound_by": checks[name][4], "bytes": checks[name][5],
              "ops": checks[name][6], "library_ms": None,
+             "batch_ms": batch_ms[name],
              **({"subset_ms": checks["paint_subsets"]} if name == "paint"
                 else {})}
             for name, (cu, replaces, runs) in meta.items()]

@@ -10,5 +10,7 @@ from img_env_tpu_torch.config import EnvConfig
 from img_env_tpu_torch.env.nav_env import NavEnv
 from img_env_tpu_torch.mpc.controller import MpcController
 from img_env_tpu_torch.mpc.mppi import MppiConfig
+from img_env_tpu_torch.parallel import BatchedNavEnv
 
-__all__ = ["EnvConfig", "NavEnv", "MpcController", "MppiConfig"]
+__all__ = ["EnvConfig", "NavEnv", "BatchedNavEnv", "MpcController",
+           "MppiConfig"]

@@ -1,14 +1,16 @@
 """World-state containers: the ``img_env_tpu.core.state`` pytrees as
 NamedTuples of torch tensors, with the same field names.
 
-One ``WorldState`` holds a single scene (N robots, M peds, O obstacles).
-The JAX state's ``rng`` key has no twin: the port keeps its randomness in
-the environment's ``torch.Generator``.
+One ``WorldState`` holds a single scene (N robots, M peds, O obstacles);
+a scene batch (``parallel.BatchedNavEnv``) gives every tensor a leading
+[S] axis, as the JAX package's vmapped states do.  The JAX state's
+``rng`` key has no twin: the port keeps its randomness in the
+environment's ``torch.Generator``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -91,3 +93,21 @@ class Observation(NamedTuple):
     ped_min_dists: Tensor      # [N]
     angular_maps: Tensor = None   # [N,72]
     hit_points: Tensor = None     # [N,range_total,2]
+
+
+def map_tree(fn: Callable, *trees):
+    """``fn`` over the tensors of NamedTuple trees of one structure (states,
+    observations), leaves that are None kept: a scene axis added, indexed,
+    or stacked without touching the device."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(map_tree(fn, *parts)
+                             for parts in zip(*trees)))
+    return fn(*trees)
+
+
+def stack_trees(trees):
+    """NamedTuple trees stacked along a new leading axis."""
+    return map_tree(lambda *xs: torch.stack(xs), *trees)

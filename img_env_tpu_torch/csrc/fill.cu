@@ -9,7 +9,9 @@
 // Per robot i and gated slot j: rotate and translate the slot's base-frame
 // coordinate by the pose, round half away from zero to a cell (m, n), and
 // decode the packed map of scene i / nps there with self-exclusion
-// (polar.decode_packed, rid = i % nps + 1); out-of-map cells and the
+// (polar.decode_packed, rid = i % nps + 1, or rids[i] where the caller
+// passes in-scene ids: a sensor group's robots are a subset of their
+// scene's, each excluded by its own id); out-of-map cells and the
 // ungated suffix [n_fill, n_slots) are 0.  The decode splits as
 //   decode(v, rid) = anyocc(v) & ~own(v, rid),
 //   anyocc(v) = static | count != 0,
@@ -120,7 +122,8 @@ fill_bits_kernel(const unsigned* __restrict__ bits_g,
                  const int* __restrict__ packed, int h, int w, int words,
                  const float* __restrict__ cosv,
                  const float* __restrict__ sinv, const float* __restrict__ px,
-                 const float* __restrict__ py, int nps, int n_fill,
+                 const float* __restrict__ py,
+                 const int* __restrict__ rids, int nps, int n_fill,
                  int n_slots, float inv_res, const float* __restrict__ pix_x,
                  const float* __restrict__ pix_y,
                  unsigned char* __restrict__ out) {
@@ -146,15 +149,16 @@ fill_bits_kernel(const unsigned* __restrict__ bits_g,
     uint2 res = make_uint2(0u, 0u);
     if (j0 < n_fill) {                  // n_fill % 8 == 0: all 8 gated
       const float c = cosv[i], s = sinv[i], x0 = px[i], y0 = py[i];
+      const int rid = rids ? __ldg(rids + i) : local + 1;
 #pragma unroll 1
       for (int q = 0; q < 2; ++q) {
         const float4 bx = __ldg(reinterpret_cast<const float4*>(pix_x + j0) + q);
         const float4 by = __ldg(reinterpret_cast<const float4*>(pix_y + j0) + q);
         const unsigned wq =
-            fill_one<kStage>(bx.x, by.x, c, s, x0, y0, inv_res, h, w, words, staged, bits, map, local + 1) |
-            fill_one<kStage>(bx.y, by.y, c, s, x0, y0, inv_res, h, w, words, staged, bits, map, local + 1) << 8 |
-            fill_one<kStage>(bx.z, by.z, c, s, x0, y0, inv_res, h, w, words, staged, bits, map, local + 1) << 16 |
-            fill_one<kStage>(bx.w, by.w, c, s, x0, y0, inv_res, h, w, words, staged, bits, map, local + 1) << 24;
+            fill_one<kStage>(bx.x, by.x, c, s, x0, y0, inv_res, h, w, words, staged, bits, map, rid) |
+            fill_one<kStage>(bx.y, by.y, c, s, x0, y0, inv_res, h, w, words, staged, bits, map, rid) << 8 |
+            fill_one<kStage>(bx.z, by.z, c, s, x0, y0, inv_res, h, w, words, staged, bits, map, rid) << 16 |
+            fill_one<kStage>(bx.w, by.w, c, s, x0, y0, inv_res, h, w, words, staged, bits, map, rid) << 24;
         if (q == 0) res.x = wq; else res.y = wq;
       }
     }
@@ -164,13 +168,15 @@ fill_bits_kernel(const unsigned* __restrict__ bits_g,
 
 // packed [S, h, w] int32; bits [S, h, 4 * ceil(w / 128)] int32 scratch
 // that the pre-pass writes; cosv/sinv/px/py [n] f32 (robot i reads scene
-// i / nps, n = S * nps); pix_x/pix_y [n_slots] f32, 16-byte aligned, of
+// i / nps, n = S * nps); rids [n] int32 in-scene ids (1..4095) or null
+// for i % nps + 1; pix_x/pix_y [n_slots] f32, 16-byte aligned, of
 // which the gated prefix [0, n_fill) is filled; out [n, n_slots] bool
 // (uint8); n_fill and n_slots multiples of 8.
 extern "C" int img_env_fill_sorted(const int* packed, unsigned* bits,
                                    int scenes, int h, int w,
                                    const float* cosv, const float* sinv,
-                                   const float* px, const float* py, int nps,
+                                   const float* px, const float* py,
+                                   const int* rids, int nps,
                                    int n_fill, int n_slots, float inv_res,
                                    const float* pix_x, const float* pix_y,
                                    unsigned char* out, cudaStream_t stream) {
@@ -201,11 +207,11 @@ extern "C" int img_env_fill_sorted(const int* packed, unsigned* bits,
   dim3 grid(per_scene, scenes);
   if (stage)
     fill_bits_kernel<true><<<grid, FILL_THREADS, smem, stream>>>(
-        bits, packed, h, w, words, cosv, sinv, px, py, nps, n_fill, n_slots,
-        inv_res, pix_x, pix_y, out);
+        bits, packed, h, w, words, cosv, sinv, px, py, rids, nps, n_fill,
+        n_slots, inv_res, pix_x, pix_y, out);
   else
     fill_bits_kernel<false><<<grid, FILL_THREADS, 0, stream>>>(
-        bits, packed, h, w, words, cosv, sinv, px, py, nps, n_fill, n_slots,
-        inv_res, pix_x, pix_y, out);
+        bits, packed, h, w, words, cosv, sinv, px, py, rids, nps, n_fill,
+        n_slots, inv_res, pix_x, pix_y, out);
   return (int)cudaGetLastError();
 }

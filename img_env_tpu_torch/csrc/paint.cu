@@ -179,8 +179,13 @@ extern "C" int img_env_paint_slots(const short* s_hit, const short* s_tail,
                                    cudaStream_t stream) {
   if (n <= 0 || n_slots <= 0) return 0;
   const size_t smem = (size_t)PAINT_ROBOTS * n_beams * sizeof(int);
-  if (smem > 48 * 1024) {
-    const int err = (int)cudaFuncSetAttribute(
+  // past 48 KB a block's shared memory, the kernel's static arrays
+  // counted, needs the opt-in attribute
+  cudaFuncAttributes fa;
+  int err = (int)cudaFuncGetAttributes(&fa, paint_slots_kernel);
+  if (err) return err;
+  if (smem + fa.sharedSizeBytes > 48 * 1024) {
+    err = (int)cudaFuncSetAttribute(
         paint_slots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err) return err;

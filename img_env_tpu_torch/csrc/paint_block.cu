@@ -239,8 +239,13 @@ extern "C" int img_env_paint_blocks(const short* s_hit, const short* s_tail,
   if (n_wide < 0 || n_wide > n_blocks) return (int)cudaErrorInvalidValue;
   const int thr_ints = max(PB_WIDE_ROBOTS * wide_w, PB_ROBOTS * narrow_w);
   const size_t smem = ((size_t)thr_ints + cap) * sizeof(int);
-  if (smem > 48 * 1024) {
-    const int err = (int)cudaFuncSetAttribute(
+  // past 48 KB a block's shared memory, the kernel's static arrays
+  // counted, needs the opt-in attribute
+  cudaFuncAttributes fa;
+  int err = (int)cudaFuncGetAttributes(&fa, paint_blocks_kernel);
+  if (err) return err;
+  if (smem + fa.sharedSizeBytes > 48 * 1024) {
+    err = (int)cudaFuncSetAttribute(
         paint_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err) return err;

@@ -26,7 +26,11 @@
 // one cell); only then does it wait for the clear to finish and add
 // ((r + 1) << 12) | 1 with one global atomicAdd per distinct in-map cell.
 // So the loads and the dedup overlap the clear, and the raster launch's
-// latency hides behind it.  A robot with more points than registers hold
+// latency hides behind it.  A scene batch is one launch: the clear covers
+// every scene's map, the raster grid has a block per robot of any scene
+// (scene r / nps, in-scene id r % nps + 1), and griddepcontrol.wait
+// waits for the whole clear grid, so no scene's atomics precede its
+// clear.  A robot with more points than registers hold
 // takes the same steps after the wait.  Integer atomics commute, so the
 // map is deterministic whatever the block order.  Out-of-map and invalid
 // points never write.  The host checks that every footprint spans at most
@@ -91,14 +95,16 @@ __device__ __forceinline__ void wait_for_clear() {
 
 __global__ void __launch_bounds__(RASTER_THREADS)
     raster_robots_kernel(const int2* __restrict__ cells,
-                         const unsigned char* __restrict__ valid, int p,
-                         int h, int w, int* __restrict__ out) {
+                         const unsigned char* __restrict__ valid, int nps,
+                         int p, int h, int w, int* __restrict__ out) {
   __shared__ unsigned bits[RASTER_WORDS];
   __shared__ int m0, n0;
   const int tid = threadIdx.x, r = blockIdx.x;
-  const int contrib = ((r + 1) << 12) | 1;
+  const int scene = r / nps, local = r - scene * nps;
+  const int contrib = ((local + 1) << 12) | 1;
   const int2* c = cells + (size_t)r * p;
-  const unsigned char* v = valid + (size_t)r * p;
+  const unsigned char* v = valid + (size_t)local * p;
+  out += (size_t)scene * h * w;
 
   for (int i = tid; i < RASTER_WORDS; i += RASTER_THREADS) bits[i] = 0u;
   if (tid == 0) {
@@ -155,15 +161,18 @@ __global__ void __launch_bounds__(RASTER_THREADS)
   }
 }
 
-// cells [n, p, 2] int32 world cells (row, col); valid [n, p] bool;
-// out [h, w] int32: the sum over robots covering the cell of
-// ((r + 1) << 12) | 1.  The clear kernel, then the raster kernel as its
-// programmatic dependent (one block per robot).
+// cells [scenes, nps, p, 2] int32 world cells (row, col); valid [nps, p]
+// bool, the same in every scene;
+// out [scenes, h, w] int32: per scene, the sum over its robots r covering
+// the cell of ((r + 1) << 12) | 1, r the in-scene index.  The clear kernel
+// over every scene's map, then the raster kernel as its programmatic
+// dependent (one block per robot of any scene): one launch for the batch.
 extern "C" int img_env_raster_robots(const int* cells,
-                                     const unsigned char* valid, int n, int p,
-                                     int h, int w, int* out,
+                                     const unsigned char* valid, int scenes,
+                                     int nps, int p, int h, int w, int* out,
                                      cudaStream_t stream) {
-  const size_t total = (size_t)h * w;
+  const size_t total = (size_t)scenes * h * w;
+  const int n = scenes * nps;
   clear_map_kernel<<<CLEAR_BLOCKS, CLEAR_THREADS, 0, stream>>>(out, total);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n <= 0 || p <= 0) return (int)err;
@@ -178,7 +187,7 @@ extern "C" int img_env_raster_robots(const int* cells,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const int2* cells2 = reinterpret_cast<const int2*>(cells);
-  void* args[] = {(void*)&cells2, (void*)&valid, (void*)&p,
+  void* args[] = {(void*)&cells2, (void*)&valid, (void*)&nps, (void*)&p,
                   (void*)&h,      (void*)&w,     (void*)&out};
   err = cudaLaunchKernelExC(&cfg, (const void*)raster_robots_kernel, args);
   if (err != cudaSuccess) return (int)err;

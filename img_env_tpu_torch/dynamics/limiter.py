@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from img_env_tpu_torch.config import SpeedLimiterConfig
+from img_env_tpu_torch.ops.raster import div_const
 
 
 class LimiterParams(NamedTuple):
@@ -78,8 +79,10 @@ def _limit_acceleration(p: LimiterParams, v, v0, dt):
     v_same = v0 + torch.where(same_dir, dv_a, dv_b)
 
     # sign-crossing branch (speed_limit.cpp:135-148)
-    zero_dt = torch.abs(v0 / amin)
-    v_dt = torch.abs(v / amax)
+    # XLA compiles the division by a constant into a product with its
+    # float32 reciprocal (raster.div_const)
+    zero_dt = torch.abs(div_const(v0, amin))
+    v_dt = torch.abs(div_const(v, amax))
     v_decel = v0_sign * (torch.abs(v0) - _f32(abs(amin), dt))
     v_accel = v_sign * torch.abs(amax * (dt - zero_dt))
     v_cross = torch.where(zero_dt >= dt, v_decel,

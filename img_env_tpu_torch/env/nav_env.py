@@ -12,16 +12,24 @@ ERVO or dataset replay; gait) -> robot kinematics -> raster (kernel K1:
 robots; peds' legs and bodies) and collision codes -> flat sensor pass:
 FOV fill (K2), raycast, exact painter (K3, or K5 with
 ``paint_mode='block'``), self stamp, 48x48 resize -> ped vectors and ped
-maps (K4) -> observation -> reward/done.  On a CUDA
-device the kernels always run; on the CPU their plain-torch twins do.
+maps (K4) -> observation -> reward/done.  On a CUDA device the kernels
+always run; on the CPU their plain-torch twins do.
 
-Ported: one scene, robots and obstacles, pedestrians with the
-``pedscene`` (SFM), ``rvoscene`` (ORCA), ``ervoscene`` (ORCA with the beep
-evacuation) or ``dataset`` (trajectory replay) crowd model or none, the
-reset's ``carry`` and ``dataset`` arguments, one sensor placement shared by
-all robots, ``use_laser`` and ``sensor_mode='parity'``.  Everything else
-raises ``NotImplementedError``.  ``step_fn`` and the observation make no
-host syncs; the reset does (the sampler's retries, the segment split).
+The observation and the step also take states of S scenes (every tensor
+with a leading [S] axis; ``parallel.BatchedNavEnv``): the raster of all
+scenes is one K1 launch, and the sensor pass runs flat over the S*N robots,
+one pass per sensor group (robots of one sensor placement; K2 and K3 once
+per group), robot i reading the packed map of scene i // N.
+
+Ported: robots and obstacles, pedestrians with the ``pedscene`` (SFM),
+``rvoscene`` (ORCA), ``ervoscene`` (ORCA with the beep evacuation) or
+``dataset`` (trajectory replay) crowd model or none, the reset's ``carry``,
+``dataset`` and ``static_map`` arguments, per-robot sensor placements,
+``use_laser`` on or off, and ``sensor_mode`` 'parity' or 'fast' (the same
+pipeline on a view grid coarsened by ``fast_sensor_scale``).
+``sensor_mode='reference'`` raises ``NotImplementedError``.  ``step_fn``
+and the observation make no host syncs; the reset does (the sampler's
+retries, the segment split).
 """
 
 from __future__ import annotations
@@ -33,7 +41,11 @@ import numpy as np
 import torch
 
 from img_env_tpu_torch.config import EnvConfig
-from img_env_tpu_torch.constants import CELL_FREE_MIN
+from img_env_tpu_torch.constants import (
+    ANGULAR_MAP_SIZE,
+    CELL_FREE_MIN,
+    LASER_MISS_DIST,
+)
 from img_env_tpu_torch.core.state import (
     CrowdAuxState,
     Observation,
@@ -41,6 +53,8 @@ from img_env_tpu_torch.core.state import (
     PedState,
     RobotState,
     WorldState,
+    map_tree,
+    stack_trees,
 )
 from img_env_tpu_torch.crowd import common as crowd_common
 from img_env_tpu_torch.crowd import gait as gait_mod
@@ -110,32 +124,46 @@ class EnvStatics(NamedTuple):
     sampler: SamplerSpec
     limiter_v: LimiterParams
     limiter_w: LimiterParams
-    painter: painter_mod.PainterStatics
+    painter: Optional[painter_mod.PainterStatics]   # None without lasers
     orca_cfg: orca_mod.OrcaConfig
+    sensor_groups: tuple = ()      # SensorGroup per distinct placement;
+                                   # view_statics .. painter are group 0's
+
+
+class SensorGroup(NamedTuple):
+    """The robots of one sensor placement (``sensor_cfgs``, the
+    reference's per-robot ``sensor_base_``, img_env.cpp:131-132) and their
+    sensor geometry: one flat sensor pass per group."""
+
+    idx: np.ndarray                # [k] int32 in-scene robot indices
+    sensor: Tuple[float, float]
+    view_statics: ViewStatics
+    polar: polar_mod.PolarStatics  # on the fast grid in sensor_mode 'fast'
+    painter: Optional[painter_mod.PainterStatics]
+    own_slots: np.ndarray          # [k,P] sorted-slot footprint stamps
+    own_slots_ok: np.ndarray       # [k,P]
 
 
 SCENES = ("", "pedscene", "rvoscene", "ervoscene", "dataset")
+SENSOR_MODES = ("parity", "fast")
 
 
 def check_supported(cfg: EnvConfig) -> None:
-    """Raise NotImplementedError for what this port does not run yet, and
-    ValueError for a crowd model that does not exist."""
+    """Raise NotImplementedError for what this port does not run, and
+    ValueError for a crowd model or sensor mode that does not exist.
+    ``num_scenes`` is read by the batch facades, not here, as in the JAX
+    package."""
     scene = cfg.ped_sim.type
     if cfg.ped_sim.total > 0 and scene not in SCENES:
         raise ValueError(f"unknown crowd model ped_sim.type {scene!r}")
-    if cfg.sensor_mode != "parity":
+    if cfg.sensor_mode == "reference":
         raise NotImplementedError(
-            f"sensor_mode {cfg.sensor_mode!r} is not ported (only 'parity')")
-    if not cfg.use_laser:
-        raise NotImplementedError("use_laser=False views are not ported")
-    if int(cfg.num_scenes) != 1:
-        raise NotImplementedError("multi-scene batches are not ported")
-    n = cfg.robot.total
-    if n < 1:
+            "sensor_mode 'reference' (the per-robot gather the JAX package "
+            "keeps for cross-checks) is not ported")
+    if cfg.sensor_mode not in SENSOR_MODES:
+        raise ValueError(f"unknown sensor_mode {cfg.sensor_mode!r}")
+    if cfg.robot.total < 1:
         raise ValueError("at least one robot")
-    if len({tuple(float(v) for v in s) for s in cfg.robot.sensor_cfgs[:n]}) > 1:
-        raise NotImplementedError(
-            "heterogeneous sensor placements are not ported")
 
 
 def _ped_statics(cfg: EnvConfig):
@@ -237,42 +265,76 @@ def build_statics(cfg: EnvConfig) -> EnvStatics:
         op, om, od = op[:0], om[:0], od[:0]
 
     vp = ViewParams.from_config(cfg)
-    sensor = tuple(float(v) for v in cfg.robot.sensor_cfgs[0])
-    vs = ViewStatics.build(vp, sensor)
-    ps = polar_mod.PolarStatics.build(vp, sensor,
-                                      image_size=tuple(cfg.image_size))
-    oslots = np.full(robot_mask.shape, ps.n_slots - 1, np.int32)
-    ook = np.zeros(robot_mask.shape, bool)
-    for i in range(n):
-        c_p, m_p = own_view_cells(robot_points[i], robot_mask[i], vp)
-        oslots[i], ook[i] = polar_mod.own_slots_from_cells(ps, c_p, m_p)
-    pst = painter_mod.PainterStatics.build(ps, sensor)
+    # 'fast' runs the same polar pipeline on a view grid coarsened by
+    # fast_sensor_scale: fewer fill reads and raycast rows, lasers
+    # quantized to the coarse cell (nav_env.py:233-241 of the JAX package)
+    if cfg.sensor_mode == "fast":
+        sc = max(int(cfg.fast_sensor_scale), 1)
+        vp_polar = vp._replace(hpx=vp.hpx // sc, wpx=vp.wpx // sc,
+                               resolution=vp.resolution * sc)
+    else:
+        vp_polar = vp
+    # robots grouped by distinct sensor placement in first-seen order
+    # (reset_helper.py:383-384): one sensor pass per group
+    sensors = [tuple(float(v) for v in cfg.robot.sensor_cfgs[i])
+               for i in range(n)]
+    groups = []
+    for u in dict.fromkeys(sensors):
+        idx = np.asarray([i for i in range(n) if sensors[i] == u], np.int32)
+        ps_g = polar_mod.PolarStatics.build(
+            vp_polar, u, image_size=tuple(cfg.image_size))
+        oslots = np.full((len(idx),) + robot_mask.shape[1:],
+                         ps_g.n_slots - 1, np.int32)
+        ook = np.zeros((len(idx),) + robot_mask.shape[1:], bool)
+        for gi, i in enumerate(idx):
+            c_p, m_p = own_view_cells(robot_points[i], robot_mask[i],
+                                      vp_polar)
+            oslots[gi], ook[gi] = polar_mod.own_slots_from_cells(
+                ps_g, c_p, m_p)
+        groups.append(SensorGroup(
+            idx=idx, sensor=u, view_statics=ViewStatics.build(vp, u),
+            polar=ps_g,
+            painter=(painter_mod.PainterStatics.build(ps_g, u)
+                     if vp.use_laser else None),
+            own_slots=oslots, own_slots_ok=ook))
+    g0 = groups[0]
     return EnvStatics(
         static_map=static_map, resolution=res,
         robot_points=robot_points, robot_mask=robot_mask,
         robot_radius=rob_radius, **_ped_statics(cfg),
         obs_points=op, obs_point_dist=od, obs_base_mask=om,
         obs_is_circle=obs_circ,
-        view_params=vp, view_statics=vs, polar=ps,
-        own_slots=oslots, own_slots_ok=ook,
+        view_params=vp, view_statics=g0.view_statics, polar=g0.polar,
+        own_slots=g0.own_slots, own_slots_ok=g0.own_slots_ok,
         sampler=SamplerSpec.from_config(cfg),
         limiter_v=LimiterParams.from_config(cfg.speed_limiter_v),
         limiter_w=LimiterParams.from_config(cfg.speed_limiter_w),
-        painter=pst,
+        painter=g0.painter,
         orca_cfg=orca_mod.OrcaConfig(
             time_step=float(cfg.control_hz),
             max_obs_segments=int(cfg.max_obs_segments)),
+        sensor_groups=tuple(groups),
     )
 
 
 class SensorTables(NamedTuple):
-    """Everything the step reads, as tensors on the environment's device."""
+    """Everything the step reads, as tensors on the environment's device
+    (``polar`` and ``painter``: sensor group 0's)."""
 
     polar: polar_mod.PolarTables
-    painter: painter_mod.PainterTables
+    painter: Optional[painter_mod.PainterTables]   # None without lasers
     robot_points: torch.Tensor     # [N,P,2] f32
     robot_mask: torch.Tensor       # [N,P] bool
     beam_dirs: torch.Tensor        # [R,2] f32 (cos, sin) of beam angles
+
+
+class GroupTables(NamedTuple):
+    """One sensor group's tables on the device."""
+
+    polar: polar_mod.PolarTables   # own_mask: [k, P'] the group's robots
+    painter: Optional[painter_mod.PainterTables]
+    idx: torch.Tensor              # [k] int64 in-scene robot indices
+    rids: torch.Tensor             # [k] int32 in-scene ids (idx + 1)
 
 
 class CrowdTables(NamedTuple):
@@ -337,23 +399,16 @@ class NavEnv:
         self.statics = st = build_statics(cfg)
         raster.check_footprint_span(st.robot_points, st.resolution)
         dev = self.device
-        own_mask = polar_mod.own_mask_sorted(st.polar, st.own_slots,
-                                             st.own_slots_ok)
-        # the painter's launch table: K5's 64-slot blocks for
-        # paint_mode='block', K3's per-slot visit lists otherwise
-        if cfg.paint_mode == "block":
-            layout = painter_mod.PaintBlocks.build(
-                st.painter, st.view_params.range_total)
-        else:
-            layout = painter_mod.PaintSlots.build(st.painter)
+        self.group_tables = tuple(self._group_tables(g)
+                                  for g in st.sensor_groups)
         # XLA folds the JAX package's cos/sin of these constant float32
         # angles at compile time, correctly rounded: float64 cos/sin of the
         # float32 angle, rounded to float32
         ang = torch.as_tensor(st.view_statics.laser.angles,
                               dtype=torch.float32, device=dev).double()
         self.tables = SensorTables(
-            polar=polar_mod.make_tables(st.polar, own_mask, dev),
-            painter=painter_mod.make_painter_tables(st.painter, layout, dev),
+            polar=self.group_tables[0].polar,
+            painter=self.group_tables[0].painter,
             robot_points=torch.as_tensor(st.robot_points, device=dev),
             robot_mask=torch.as_tensor(st.robot_mask, device=dev),
             beam_dirs=torch.stack([torch.cos(ang), torch.sin(ang)],
@@ -365,6 +420,27 @@ class NavEnv:
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
 
+    def _group_tables(self, g: SensorGroup) -> GroupTables:
+        """A sensor group's device tables: its polar tables with its robots'
+        self-stamp masks, and the painter's launch table (K5's 64-slot
+        blocks for paint_mode='block', K3's per-slot visit lists
+        otherwise), built from the group's parity or fast statics."""
+        dev = self.device
+        own_mask = polar_mod.own_mask_sorted(g.polar, g.own_slots,
+                                             g.own_slots_ok)
+        painter = None
+        if g.painter is not None:
+            if self.cfg.paint_mode == "block":
+                layout = painter_mod.PaintBlocks.build(
+                    g.painter, self.statics.view_params.range_total)
+            else:
+                layout = painter_mod.PaintSlots.build(g.painter)
+            painter = painter_mod.make_painter_tables(g.painter, layout, dev)
+        idx = torch.as_tensor(g.idx, dtype=torch.int64, device=dev)
+        return GroupTables(
+            polar=polar_mod.make_tables(g.polar, own_mask, dev),
+            painter=painter, idx=idx, rids=(idx + 1).to(torch.int32))
+
     # ------------------------------------------------------------------
     # reset
     # ------------------------------------------------------------------
@@ -374,27 +450,30 @@ class NavEnv:
                                      self.device)
 
     def reset_fn(self, sample: Optional[ScenarioSample] = None, carry=None,
-                 dataset=None):
-        state = self.reset_state_fn(sample, carry, dataset)
+                 dataset=None, static_map=None):
+        state = self.reset_state_fn(sample, carry, dataset, static_map)
         return self._observe(state)
 
     def reset_state_fn(self, sample: Optional[ScenarioSample] = None,
                        carry: Optional[WorldState] = None,
-                       dataset=None) -> WorldState:
+                       dataset=None, static_map=None) -> WorldState:
         """Map, EDT, robot and ped state for an episode, without the sensor
         pass.  ``sample``: an injected layout (default: a fresh draw).
         ``carry``: the previous episode's state, whose robots' command
         before last, ped velocities, gait and robot crowd velocities carry
         over.  ``dataset``: (traj [M,T,2], vel [M,T,2], length [M]) replay
         arrays for the ``dataset`` scene (ETH/UCY, img_env.cpp:361-386;
-        datasets/pedestrians.py); the peds then start from frame 0."""
+        datasets/pedestrians.py); the peds then start from frame 0.
+        ``static_map``: a uint8 base map for this episode in place of the
+        configured one (scenes of one batch holding different worlds, padded
+        to one shape; the configured map's resolution)."""
         if sample is None:
             sample = self.sample_scenario()
-        return self.reset_from_sample(sample, carry, dataset)
+        return self.reset_from_sample(sample, carry, dataset, static_map)
 
     def reset_from_sample(self, sc: ScenarioSample,
                           carry: Optional[WorldState] = None,
-                          dataset=None) -> WorldState:
+                          dataset=None, static_map=None) -> WorldState:
         st = self.statics
         cfg = self.cfg
         dev = self.device
@@ -411,9 +490,11 @@ class NavEnv:
         dyn_mask = base_mask & (~is_circ[:, None]
                                 | (f32(st.obs_point_dist)
                                    <= circle_r[:, None]))
+        base_map = (self.static_map if static_map is None
+                    else torch.as_tensor(static_map, dtype=torch.uint8,
+                                         device=dev))
         obs_map = raster.draw_obstacles(
-            self.static_map, st.resolution, obs_pose, f32(st.obs_points),
-            dyn_mask)
+            base_map, st.resolution, obs_pose, f32(st.obs_points), dyn_mask)
         aabb = obstacle_corners(obs_pose, st.sampler, circle_r)
 
         z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
@@ -515,6 +596,11 @@ class NavEnv:
         uniform draw for the beep response (default: the generator)."""
         new_state, alive, beeps = self.advance_fn(state, actions, beep_u)
         new_state, obs = self._observe(new_state)
+        return self.finish_step(new_state, obs, alive, beeps)
+
+    @staticmethod
+    def finish_step(new_state, obs: Observation, alive, beeps):
+        """(state, obs, reward, done, info) of an observed step."""
         reward = rewards.base_reward(obs.is_collisions, obs.is_arrives)
         done = rewards.compute_dones(obs.is_collisions, obs.is_arrives)
         info = {
@@ -527,33 +613,58 @@ class NavEnv:
     def advance_fn(self, state: WorldState, actions, beep_u=None):
         """Pre-observation step: beeps, robot dynamics and bookkeeping.
         Returns (state-before-observe, alive mask, beeps)."""
+        states, alive, beeps = self.advance_scenes(
+            _add_scene_axis(state), actions[None],
+            None if beep_u is None else beep_u[None])
+        return _drop_scene_axis(states), alive[0], beeps[0]
+
+    def advance_scenes(self, states: WorldState, actions, beep_u=None):
+        """``advance_fn`` over S scenes: states with a leading [S] axis,
+        actions [S, N, 3], beep_u [S, N] (default: S*N draws from the
+        generator).  The beeps and the robot dynamics are elementwise and
+        run flat over the S*N robots; the crowd steps once per scene."""
         st = self.statics
         cfg = self.cfg
-        r = state.robots
+        r = states.robots
+        s, n = r.pose.shape[:2]
+        flat = lambda x: x.reshape((s * n,) + x.shape[2:])
         dones_prev = rewards.compute_dones(r.collision,
                                            r.arrive.to(torch.int32))
         alive = dones_prev == 0
-        zero = torch.zeros_like(actions[:, 0])
-        v = torch.where(alive, actions[:, 0], zero)
-        w = torch.where(alive, actions[:, 1], zero)
-        v_y = torch.where(alive, actions[:, 2], zero)
+        zero = torch.zeros_like(actions[..., 0])
+        v = torch.where(alive, actions[..., 0], zero)
+        w = torch.where(alive, actions[..., 1], zero)
+        v_y = torch.where(alive, actions[..., 2], zero)
 
         # crowd step first, from the previous robot mirrors; the beep
         # sources feed the ERVO evacuation term
         sources, radii, beeps = crowd_common.sample_beeps(
-            r.pose, v_y, float(cfg.beep_r), float(cfg.ped_ca_p), u=beep_u,
+            flat(r.pose), flat(v_y), float(cfg.beep_r), float(cfg.ped_ca_p),
+            u=None if beep_u is None else flat(beep_u),
             generator=self.generator)
-        peds, crowd_aux = self._crowd_step(state, sources, radii)
-        pose, l0, l1, vel, arrive_new = batched_robot_cmd(
-            r.pose, r.goal, r.vw_last0, r.vw_last1, r.vel_world,
-            v, w, v_y, alive, st.limiter_v, st.limiter_w,
-            float(cfg.control_hz), cfg.n_substeps, cfg.robot_type)
+        if cfg.ped_sim.total == 0 or self.scene_type in ("none", ""):
+            peds, crowd_aux = states.peds, states.crowd_aux
+        else:
+            per_scene = [self._crowd_step(
+                map_tree(lambda x, k=k: x[k], states),
+                sources[k * n:(k + 1) * n], radii[k * n:(k + 1) * n])
+                for k in range(s)]
+            peds = stack_trees([p for p, _ in per_scene])
+            crowd_aux = stack_trees([a for _, a in per_scene])
+        unflat = lambda x: x.reshape((s, n) + x.shape[1:])
+        pose, l0, l1, vel, arrive_new = (unflat(x) for x in batched_robot_cmd(
+            flat(r.pose), flat(r.goal), flat(r.vw_last0), flat(r.vw_last1),
+            flat(r.vel_world), flat(v), flat(w), flat(v_y), flat(alive),
+            st.limiter_v, st.limiter_w, float(cfg.control_hz),
+            cfg.n_substeps, cfg.robot_type))
+        beeps = unflat(beeps)
         robots = RobotState(
             pose=pose, goal=r.goal, goal_yaw=r.goal_yaw,
             vw_last0=l0, vw_last1=l1, vel_world=vel,
             collision=r.collision, arrive=r.arrive | arrive_new, beep=beeps)
-        return (state._replace(robots=robots, peds=peds, crowd_aux=crowd_aux,
-                               step=state.step + 1), alive, beeps)
+        return (states._replace(robots=robots, peds=peds,
+                                crowd_aux=crowd_aux, step=states.step + 1),
+                alive, beeps)
 
     def _crowd_step(self, state: WorldState, sources, radii):
         """Peds and the robot mirrors' crowd velocities after one crowd
@@ -654,51 +765,105 @@ class NavEnv:
 
     # ------------------------------------------------------------------
     def _sensor_pass(self, packed, poses):
-        """The flat sensor pipeline over robots: (sensor_maps [N, h, w],
-        hits [N, R], angular [N, 72])."""
+        """The flat sensor pipeline over robots.  packed: the id-packed
+        maps [S, H, W]; poses: [S*N, 3] scene-major.  Returns
+        (sensor_maps [S*N, h, w], hits [S*N, R], angular [S*N, 72])."""
+        groups = self.group_tables
+        if len(groups) == 1:
+            return self._group_pass(self.statics.sensor_groups[0],
+                                    groups[0], packed, poses, None)
+        s = packed.shape[0]
+        n = poses.shape[0] // s
+        outs, order = [], []
+        for g, t in zip(self.statics.sensor_groups, groups):
+            # the group's robots of every scene, scene-major
+            rows = (torch.arange(s, device=poses.device)[:, None] * n
+                    + t.idx[None]).reshape(-1)
+            order.append(rows)
+            outs.append(self._group_pass(g, t, packed, poses[rows],
+                                         t.rids.repeat(s)))
+        # back to robot order (nav_env.py:994-998 of the JAX package)
+        inv = torch.argsort(torch.cat(order))
+        return tuple(torch.cat(parts)[inv] for parts in zip(*outs))
+
+    def _group_pass(self, g: SensorGroup, t: GroupTables, packed, poses,
+                    rids):
+        """One sensor group's pass: K2 over its robots of every scene
+        (``rids``: their in-scene ids, None for all robots in order), the
+        raycast and K3 (or K5) with the group's tables, or the plain views
+        without lasers; the self stamp; the resize."""
         st = self.statics
-        t = self.tables
-        ps = st.polar
-        occ = polar_mod.fill_sorted(ps, t.polar, packed, poses,
-                                    st.resolution)
-        hits, angular, aux = polar_mod.raycast_batched(ps, t.polar, occ)
-        s_hit, s_tail = painter_mod.hit_steps(st.painter, t.painter, *aux)
-        vals = painter_mod.paint(st.painter, t.painter, s_hit, s_tail)
-        vals = polar_mod.stamp_self_mask(vals, t.polar.own_mask)
+        vp = st.view_params
+        b = poses.shape[0]
+        occ = polar_mod.fill_sorted(g.polar, t.polar, packed, poses,
+                                    st.resolution, rids)
+        if vp.use_laser:
+            hits, angular, aux = polar_mod.raycast_batched(g.polar, t.polar,
+                                                           occ)
+            s_hit, s_tail = painter_mod.hit_steps(g.painter, t.painter, *aux)
+            vals = painter_mod.paint(g.painter, t.painter, s_hit, s_tail)
+        else:
+            hits = torch.full((b, vp.range_total), LASER_MISS_DIST,
+                              device=poses.device)
+            angular = torch.full((b, ANGULAR_MAP_SIZE), vp.max_dist,
+                                 device=poses.device)
+            inside = polar_mod.inside_sorted(g.polar, t.polar,
+                                             packed.shape[-2:], poses,
+                                             st.resolution)
+            vals = polar_mod.plain_values_sorted(t.polar, occ, inside)
+        # the group's per-robot self-stamp masks tile over the scenes
+        own = t.polar.own_mask
+        vals = polar_mod.stamp_self_mask(
+            vals.reshape(-1, own.shape[0], vals.shape[-1]), own[None]
+        ).reshape(b, -1)
         sensor_maps = polar_mod.sensor_maps_from_sorted(
             t.polar, vals, tuple(self.cfg.image_size))
         return sensor_maps, hits, angular
 
-    def _layers(self, state: WorldState):
-        """The raster layers of ``state``: obstacles, robots (K1) and ped
-        bodies and legs, each leg cloud shifted by its gait offset, then
-        posed by the ped."""
-        t, ct, p = self.tables, self.crowd, state.peds
+    def _layers(self, states: WorldState):
+        """The raster layers of S scenes: obstacles, robots (K1, one launch
+        for every scene) and ped bodies and legs, each leg cloud shifted by
+        its gait offset, then posed by the ped."""
+        t, ct, p = self.tables, self.crowd, states.peds
         return raster.build_layers(
-            state.obs_map, self.statics.resolution, state.robots.pose,
+            states.obs_map, self.statics.resolution, states.robots.pose,
             t.robot_points, t.robot_mask,
-            torch.cat([p.pos, p.yaw[:, None]], -1),
+            torch.cat([p.pos, p.yaw[..., None]], -1),
             ct.body_points, ct.body_mask,
-            ct.left_points + p.leg_offset[:, 0:1, :], ct.left_mask,
-            ct.right_points + p.leg_offset[:, 1:2, :], ct.right_mask)
+            ct.left_points + p.leg_offset[..., 0:1, :], ct.left_mask,
+            ct.right_points + p.leg_offset[..., 1:2, :], ct.right_mask)
 
     def _observe(self, state: WorldState) -> Tuple[WorldState, Observation]:
+        new_state, obs = self.observe_scenes(_add_scene_axis(state))
+        return _drop_scene_axis(new_state), map_tree(lambda x: x[0], obs)
+
+    def observe_scenes(self, states: WorldState
+                       ) -> Tuple[WorldState, Observation]:
+        """The observation of S scenes (every state tensor with a leading
+        [S] axis; ``_observe_multi`` of the JAX package): one K1 launch for
+        the raster of every scene, the sensor pass flat over the S*N robots,
+        the ped observation flat (one K4 launch).  Observation fields are
+        [S, N, ...]."""
         cfg = self.cfg
         t = self.tables
-        n = cfg.robot.total
-        dev = self.device
-        r = state.robots
-        p = state.peds
+        r = states.robots
+        p = states.peds
         ct = self.crowd
-        layers = self._layers(state)
+        s, n = r.pose.shape[:2]
+        b = s * n
+        dev = self.device
+        layers = self._layers(states)
         collision = raster.collision_codes(layers, r.collision, r.arrive)
-        sensor_maps, hits, angular = self._sensor_pass(layers.packed, r.pose)
+        poses = r.pose.reshape(b, 3)
+        sensor_maps, hits, angular = self._sensor_pass(layers.packed, poses)
 
-        vec = observe.vector_state(r.pose, r.goal, r.goal_yaw, r.vw_last0,
+        vec = observe.vector_state(poses, r.goal.reshape(b, 2),
+                                   r.goal_yaw.reshape(b),
+                                   r.vw_last0.reshape(b, 2),
                                    int(cfg.state_dim))
-        dist = observe.goal_distances(vec)
-        step_ds = torch.where(state.has_prev_dist,
-                              state.prev_goal_dist - dist,
+        dist = observe.goal_distances(vec).reshape(s, n)
+        step_ds = torch.where(states.has_prev_dist[:, None],
+                              states.prev_goal_dist - dist,
                               torch.zeros_like(dist))
         lasers = observe.norm_lasers(hits, float(cfg.laser_max),
                                      cfg.laser_norm)
@@ -711,29 +876,30 @@ class NavEnv:
                 int(cfg.max_ped), int(cfg.ped_vec_dim),
                 int(cfg.ped_image_size[0]), float(cfg.ped_image_r))
         else:
-            ped_vec = torch.zeros((n, 1 + cfg.ped_vec_dim * cfg.max_ped),
+            ped_vec = torch.zeros((s, n, 1 + cfg.ped_vec_dim * cfg.max_ped),
                                   device=dev)
-            ped_map = torch.zeros((n, 3, cfg.ped_image_size[0],
+            ped_map = torch.zeros((s, n, 3, cfg.ped_image_size[0],
                                    cfg.ped_image_size[1]), device=dev)
-            ped_min = torch.full((n,), float("inf"), device=dev)
+            ped_min = torch.full((s, n), float("inf"), device=dev)
+        sh = lambda x: x.reshape((s, n) + x.shape[1:])
         obs = Observation(
-            vector_states=vec,
-            sensor_maps=sensor_maps,
+            vector_states=sh(vec),
+            sensor_maps=sh(sensor_maps),
             is_collisions=collision,
             is_arrives=r.arrive.to(torch.int32),
-            lasers=lasers,
+            lasers=sh(lasers),
             ped_vector_states=ped_vec,
             ped_maps=ped_map,
             step_ds=step_ds,
             ped_min_dists=ped_min,
-            angular_maps=angular,
-            hit_points=hit_points,
+            angular_maps=sh(angular),
+            hit_points=sh(hit_points),
         )
-        new_state = state._replace(
+        new_states = states._replace(
             robots=r._replace(collision=collision),
             prev_goal_dist=dist,
-            has_prev_dist=torch.ones((), dtype=torch.bool, device=dev))
-        return new_state, obs
+            has_prev_dist=torch.ones((s,), dtype=torch.bool, device=dev))
+        return new_states, obs
 
     # ------------------------------------------------------------------
     def reset(self, sample: Optional[ScenarioSample] = None, carry=None,
@@ -743,3 +909,11 @@ class NavEnv:
     def step(self, state, actions):
         return self.step_fn(state, torch.as_tensor(actions,
                                                    device=self.device))
+
+
+def _add_scene_axis(state: WorldState) -> WorldState:
+    return map_tree(lambda x: x[None], state)
+
+
+def _drop_scene_axis(state: WorldState) -> WorldState:
+    return map_tree(lambda x: x[0], state)

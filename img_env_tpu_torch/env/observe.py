@@ -14,13 +14,21 @@ from img_env_tpu_torch.ops.raster import div_const
 
 def vector_state(pose, goal_xy, goal_yaw, vw_last0, state_dim: int):
     """Goal in the base frame (+yaw / velocities), Agent::get_state
-    (agent.cpp:156-184). pose [N,3]."""
+    (agent.cpp:156-184). pose [N,3].  In float32 the goal's base-frame
+    coordinates carry the JAX package's CPU bits: glibc's sin/cos of the
+    yaws and each row one fused multiply-add on the product with c
+    (``c dx + s dy`` -> fma(c, dx, s dy), ``c dy - s dx`` -> fma(c, dy,
+    -s dx)), as XLA contracts them.  The relative yaw is the atan2 of
+    glibc's sin/cos, taken in float64 and rounded once: XLA calls glibc's
+    atan2f, which is not correctly rounded, so that one value can sit an
+    ulp from the JAX package's."""
     d = goal_xy - pose[:, :2]
-    c, s = torch.cos(pose[:, 2]), torch.sin(pose[:, 2])
-    bx = c * d[:, 0] + s * d[:, 1]
-    by = -s * d[:, 0] + c * d[:, 1]
-    yaw = torch.atan2(torch.sin(goal_yaw - pose[:, 2]),
-                      torch.cos(goal_yaw - pose[:, 2]))
+    sin, cos = f32.sin_cos(torch.stack([pose[:, 2], goal_yaw - pose[:, 2]]))
+    c, s = cos[0], sin[0]
+    rows = f32.fma(c, torch.stack([d[:, 0], d[:, 1]]),
+                   s * torch.stack([d[:, 1], -d[:, 0]]))
+    bx, by = rows[0], rows[1]
+    yaw = torch.atan2(sin[1].double(), cos[1].double()).to(pose.dtype)
     if state_dim == 3:
         return torch.stack([bx, by, yaw], -1)
     if state_dim == 4:
@@ -32,17 +40,17 @@ def vector_state(pose, goal_xy, goal_yaw, vw_last0, state_dim: int):
 
 def peds_in_base(robot_pose, ped_pos, ped_vel):
     """Ped positions / velocities in each robot's base frame
-    (img_env.cpp:568-583).  Returns (px, py, vx, vy) each [N, M].  In
+    (img_env.cpp:568-583): robot_pose [..., N, 3], the peds of the same
+    scene [..., M, 2].  Returns (px, py, vx, vy) each [..., N, M].  In
     float32 the robot yaw's sin/cos carry glibc's bits and each row
     ``c x + s y`` / ``c y - s x`` is one fused multiply-add on the product
     with c, as XLA contracts the JAX package's expressions (ops/f32.py), so
     the CPU, the card and the JAX package's CPU build agree bit for bit."""
-    s, c = f32.sin_cos(robot_pose[:, 2])
-    c, s = c[None, :, None], s[None, :, None]
-    n, m = robot_pose.shape[0], ped_pos.shape[0]
-    d = ped_pos[None, :, :] - robot_pose[:, None, :2]      # [N,M,2]
-    v = ped_vel[None, :, :].expand(n, m, 2)
-    # the four rows in one multiply-add over [4, N, M]
+    s, c = f32.sin_cos(robot_pose[..., 2])
+    c, s = c[None, ..., None], s[None, ..., None]
+    d = ped_pos[..., None, :, :] - robot_pose[..., :, None, :2]  # [..,N,M,2]
+    v = ped_vel[..., None, :, :].expand(d.shape)
+    # the four rows in one multiply-add over [4, ..., N, M]
     x = torch.stack([d[..., 0], d[..., 1], v[..., 0], v[..., 1]])
     y = torch.stack([d[..., 1], -d[..., 0], v[..., 1], -v[..., 0]])
     return f32.fma(c, x, s * y).unbind(0)
@@ -58,10 +66,18 @@ def ped_vectors_and_map(robot_pose, ped_pos, ped_vel, ped_r, robot_r,
     equal ranges keep their index order); each vector block is (px, py,
     vx, vy, r, r + robot_r, dist); the map covers +-3 m at 6/image_size
     (ops/pedmap.py, kernel K4 on the card); ped_min_dist is the nearest
-    ped's distance minus (ped_r + robot_r).
+    ped's distance minus (ped_r + robot_r).  A leading scene axis
+    (robot_pose [S, N, 3], ped_pos / ped_vel [S, M, 2], robot_r [N]) gives
+    [S, N, ...] results, every robot of every scene in one flat pass (one
+    K4 launch).
     """
-    n, m = robot_pose.shape[0], ped_pos.shape[0]
-    px, py, vx, vy = peds_in_base(robot_pose, ped_pos, ped_vel)
+    lead = robot_pose.shape[:-1]
+    m = ped_pos.shape[-2]
+    px, py, vx, vy = (x.reshape(-1, m) for x in
+                      peds_in_base(robot_pose, ped_pos, ped_vel))
+    n = px.shape[0]
+    if n != robot_r.shape[0]:
+        robot_r = robot_r.repeat(n // robot_r.shape[0])
     k = min(m, max_ped)
     head = torch.full((n, 1), float(m), dtype=px.dtype, device=px.device)
     tail = px.new_zeros((n, ped_vec_dim * (max_ped - k)))
@@ -82,7 +98,8 @@ def ped_vectors_and_map(robot_pose, ped_pos, ped_vel, ped_r, robot_r,
                              device=px.device)
     ped_map = pedmap.ped_map(px, py, vx, vy, 6.0 / image_size, ped_image_r,
                              image_size)
-    return vec, ped_map, ped_min
+    unflat = lambda x: x.reshape(lead + x.shape[1:])
+    return unflat(vec), unflat(ped_map), unflat(ped_min)
 
 
 def norm_lasers(hits, laser_max: float, laser_norm: bool):
@@ -90,4 +107,7 @@ def norm_lasers(hits, laser_max: float, laser_norm: bool):
 
 
 def goal_distances(vec_states):
-    return torch.sqrt(vec_states[:, 0] ** 2 + vec_states[:, 1] ** 2)
+    """|goal| in the base frame: in float32 the correctly rounded root of
+    fma(x, x, y * y), as XLA contracts the JAX package's sum of squares."""
+    x, y = vec_states[:, 0], vec_states[:, 1]
+    return f32.sqrt(f32.fma(x, x, y * y))

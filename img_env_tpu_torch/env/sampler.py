@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from img_env_tpu_torch.config import EnvConfig
+from img_env_tpu_torch.ops import f32
 from img_env_tpu_torch.ops.footprint import bounding_radius
 from img_env_tpu_torch.ops.raster import transform_points
 
@@ -253,28 +254,49 @@ def draw(spec: SamplerSpec, generator: torch.Generator,
                         target_gauss, go_back_u)
 
 
-def _circle(radius, angle, p, yaw_off, gauss=None):
-    """Poses on the circle of ``radius`` around the region's (x, y),
-    facing ``angle + yaw_off``."""
-    x = radius * torch.cos(angle) + p[..., 0]
-    y = radius * torch.sin(angle) + p[..., 1]
+def _circle(radius, angle, p, yaw, gauss=None):
+    """Poses on the circle of ``radius`` around the region's (x, y) at
+    ``angle``, facing ``yaw``.  In float32 the bits are the JAX package's
+    CPU build's: glibc's sin/cos, and each coordinate one fused
+    multiply-add, as XLA contracts ``r * cos(a) + px`` (ops/f32.py)."""
+    sin, cos = f32.sin_cos(angle)
+    r = torch.as_tensor(radius, dtype=angle.dtype,
+                        device=angle.device).expand_as(angle)
+    x = f32.fma(r, cos, p[..., 0])
+    y = f32.fma(r, sin, p[..., 1])
     if gauss is not None:
         x, y = x + gauss[..., 0], y + gauss[..., 1]
-    return torch.stack([x, y, angle + yaw_off], -1)
+    return torch.stack([x, y, yaw], -1)
+
+
+def _lerp(lo, u, span):
+    """``lo + u * span`` as XLA contracts it: one fused multiply-add."""
+    lo, u, span = torch.broadcast_tensors(torch.as_tensor(lo, dtype=u.dtype,
+                                                          device=u.device),
+                                          u, torch.as_tensor(
+                                              span, dtype=u.dtype,
+                                              device=u.device))
+    return f32.fma(u, span, lo)
+
+
+def _yaw(u):
+    """A uniform yaw in [-3.14, 3.14)."""
+    return _lerp(-3.14, u, 6.28)
 
 
 def _view(init, u):
     """range_view: uniform over the 8 m box around ``init`` [..., 3]."""
     b = _VIEW_BOX[1]
-    return torch.stack([init[..., 0] - b + u[..., 0] * (2 * b),
-                        init[..., 1] - b + u[..., 1] * (2 * b),
-                        -3.14 + u[..., 2] * 6.28], -1)
+    return torch.stack([_lerp(init[..., 0] - b, u[..., 0], 2 * b),
+                        _lerp(init[..., 1] - b, u[..., 1], 2 * b),
+                        _yaw(u[..., 2])], -1)
 
 
 def _box(u, p):
-    """range: uniform in the region's box (x, y, yaw)."""
-    return torch.stack([p[..., 0] + u[..., 0] * (p[..., 1] - p[..., 0]),
-                        p[..., 2] + u[..., 1] * (p[..., 3] - p[..., 2]),
+    """range: uniform in the region's box (x, y, yaw).  XLA contracts the
+    x and y of an agent's proposal, not its yaw."""
+    return torch.stack([_lerp(p[..., 0], u[..., 0], p[..., 1] - p[..., 0]),
+                        _lerp(p[..., 2], u[..., 1], p[..., 3] - p[..., 2]),
                         p[..., 4] + u[..., 2] * (p[..., 5] - p[..., 4])], -1)
 
 
@@ -285,16 +307,18 @@ def _begin_candidates(code, u, gauss, p, circle_range, n_agents: int):
     sampler's do."""
     dev = u.device
     out = _box(u, p)
-    i = torch.arange(n_agents, device=dev, dtype=u.dtype)[:, None]
     zero = torch.zeros_like(u[..., 0])
+    step = torch.arange(n_agents, device=dev, dtype=u.dtype)[:, None] + zero
     kinds = {
-        RANGE_CIRCLE: lambda: _circle(circle_range, -3.14 + u[..., 0] * 6.28,
-                                      p, 3.14, gauss),
+        # the start faces away from the centre: angle + 3.14, which XLA
+        # folds to the uniform's product alone (-3.14 + 3.14 is 0)
+        RANGE_CIRCLE: lambda: _circle(circle_range, _yaw(u[..., 0]), p,
+                                      u[..., 0] * 6.28, gauss),
         RANGE_CIRCLE_FIX: lambda: _circle(
-            circle_range, (-3.14 + (6.28 / n_agents) * i).expand_as(zero),
-            p, 3.14, gauss),
+            circle_range, _lerp(-3.14, step, 6.28 / n_agents), p,
+            step * (6.28 / n_agents), gauss),
         RANGE_VIEW: lambda: _view(torch.zeros_like(u), u),
-        CIRCLE_FIX: lambda: _circle(circle_range, zero, p, -3.14),
+        CIRCLE_FIX: lambda: _circle(circle_range, zero, p, zero - 3.14),
     }
     for k, make in kinds.items():
         if (code == k).any():
@@ -322,13 +346,13 @@ def place(spec: SamplerSpec, d: SamplerDraws) -> ScenarioSample:
     if o > 0:
         u = d.obs_u
         sr = f(spec.obs_size_range)
-        circ_r = sr[:, 0] + u[:, 3] * (sr[:, 1] - sr[:, 0])
-        rect_r = torch.sqrt(sr[:, 0] ** 2 + sr[:, 2] ** 2)
+        circ_r = _lerp(sr[:, 0], u[:, 3], sr[:, 1] - sr[:, 0])
+        rect_r = f32.sqrt(sr[:, 0] ** 2 + sr[:, 2] ** 2)
         is_circ = torch.as_tensor(spec.obs_shape_circle, device=dev)
         p = f(spec.obs_params)
-        drawn = torch.stack([p[:, 0] + u[:, 0] * (p[:, 1] - p[:, 0]),
-                             p[:, 2] + u[:, 1] * (p[:, 3] - p[:, 2]),
-                             p[:, 4] + u[:, 2] * (p[:, 5] - p[:, 4])], -1)
+        drawn = torch.stack(
+            [_lerp(p[:, 2 * k], u[:, k], p[:, 2 * k + 1] - p[:, 2 * k])
+             for k in range(3)], -1)
         is_fix = torch.as_tensor(spec.obs_type == FIX, device=dev)
         obs_pose = torch.where(is_fix[:, None], p[:, :3], drawn)
         obs_radius = torch.where(is_circ, circ_r, rect_r)
@@ -345,7 +369,7 @@ def place(spec: SamplerSpec, d: SamplerDraws) -> ScenarioSample:
     def prefill(code, params):
         p0 = params[:, 0]
         ra = torch.stack([p0[:, 0], p0[:, 1],
-                          p0[:, 2] + d.pre_u * (p0[:, 3] - p0[:, 2])], -1)
+                          _lerp(p0[:, 2], d.pre_u, p0[:, 3] - p0[:, 2])], -1)
         poses = torch.zeros((a, 3), dtype=dtype, device=dev)
         poses = torch.where(torch.as_tensor(code == FIX, device=dev)[:, None],
                             p0[:, :3], poses)
@@ -385,10 +409,11 @@ def place(spec: SamplerSpec, d: SamplerDraws) -> ScenarioSample:
             init, code = init_poses[i], int(tt[i])
             tc = cand_t[i]
             if code in (RANGE_CIRCLE, RANGE_CIRCLE_FIX):
-                tc = _circle(cr, init[2].expand(tc.shape[0]), p_t[i], -3.14,
-                             d.target_gauss[i])
+                yaw = init[2].expand(tc.shape[0])
+                tc = _circle(cr, yaw, p_t[i], yaw - 3.14, d.target_gauss[i])
             elif code == CIRCLE_FIX:
-                tc = _circle(cr, init[2].expand(tc.shape[0]), p_t[i], -3.14)
+                yaw = init[2].expand(tc.shape[0])
+                tc = _circle(cr, yaw, p_t[i], yaw - 3.14)
             elif code == RANGE_VIEW:
                 tc = _view(init, d.target_u[i])
             if code == CIRCLE_FIX:

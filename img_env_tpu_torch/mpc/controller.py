@@ -1,11 +1,13 @@
 """MPC controller bound to a NavEnv (torch port of
 ``img_env_tpu.mpc.controller``, MPPI method).
 
-``act_fn`` builds the per-episode ``WorldCost`` from the live state (the
-episode EDT that reset computed over the static map plus sampled
-obstacles), predicts the pedestrians over the horizon once per solve
-(mpc/prediction.py: 'cv', 'orca' or 'sfm') and runs one K-sample MPPI solve per
-robot against the peds and the ``avoid_k`` nearest other robots.
+``act_scenes`` builds the per-episode ``WorldCost`` from the live states of
+S scenes (the episode EDTs that reset computed over the static map plus
+sampled obstacles), predicts the pedestrians over the horizon once per
+solve (mpc/prediction.py: 'cv', 'orca' or 'sfm') and runs one K-sample
+MPPI solve per robot of every scene against its scene's peds and the
+``avoid_k`` nearest other robots of its scene.  ``act_fn`` is the one-scene
+case.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from img_env_tpu_torch.core.state import WorldState
+from img_env_tpu_torch.core.state import WorldState, map_tree
 from img_env_tpu_torch.mpc.cost import CostWeights, WorldCost
 from img_env_tpu_torch.mpc.edt import edt2d
 from img_env_tpu_torch.mpc.mppi import MppiConfig, batched_mppi
@@ -74,64 +76,105 @@ class MpcController:
         return MpcState(nominal=torch.zeros((n, self.cfg.horizon, 2),
                                             device=self.device))
 
-    def world_cost(self, state: WorldState) -> WorldCost:
-        """Episode clearance field from ``state.obs_edt``; a state without
-        the episode EDT falls back to the static EDT + AABB terms."""
-        res = self.env.statics.resolution
-        if state.obs_edt.shape[0] > 1:
-            return WorldCost(
-                edt=state.obs_edt, resolution=res,
-                obs_aabb=torch.zeros((0, 4), device=self.device),
-                obs_valid=torch.zeros((0,), dtype=torch.bool,
-                                      device=self.device),
-                robot_radius=self.robot_radius)
-        o = state.obstacles.aabb.shape[0]
-        return WorldCost(
-            edt=self.static_edt, resolution=res,
-            obs_aabb=state.obstacles.aabb,
-            obs_valid=torch.ones((o,), dtype=torch.bool, device=self.device),
-            robot_radius=self.robot_radius)
-
-    def draw_noise(self, dtype=torch.float32) -> torch.Tensor:
-        """[N, K, H, 2] standard normal MPPI perturbations."""
-        n = self.env.cfg.robot.total
+    def draw_noise(self, dtype=torch.float32, scenes: int = 1):
+        """[scenes*N, K, H, 2] standard normal MPPI perturbations."""
+        n = scenes * self.env.cfg.robot.total
         return torch.randn((n, self.cfg.samples, self.cfg.horizon, 2),
                            generator=self.generator, device=self.device,
                            dtype=dtype)
 
+    def world_cost(self, states: WorldState) -> WorldCost:
+        """Clearance field of S scenes (states with a leading [S] axis):
+        the episode EDTs ``states.obs_edt`` [S, H, W]; states without the
+        episode EDT fall back to the static EDT plus each scene's obstacle
+        AABBs."""
+        s, n = states.robots.pose.shape[:2]
+        dev = states.robots.pose.device
+        scene = torch.arange(s, device=dev).repeat_interleave(n)
+        res = self.env.statics.resolution
+        if states.obs_edt.shape[1] > 1:
+            return WorldCost(
+                edt=states.obs_edt, resolution=res,
+                obs_aabb=torch.zeros((s, 0, 4), device=dev),
+                obs_valid=torch.zeros((s, 0), dtype=torch.bool, device=dev),
+                robot_radius=self.robot_radius, scene=scene)
+        aabb = states.obstacles.aabb
+        return WorldCost(
+            edt=self.static_edt[None].expand(s, -1, -1), resolution=res,
+            obs_aabb=aabb,
+            obs_valid=torch.ones(aabb.shape[:2], dtype=torch.bool,
+                                 device=dev),
+            robot_radius=self.robot_radius, scene=scene)
+
     def act_fn(self, state: WorldState, mpc_state: MpcState, noise=None):
-        """Plan for all robots.  Returns (actions [N,3], new MpcState,
-        costs [N]).  ``noise``: optional [N, K, H, 2] standard normal draws
-        (default: drawn from the controller's generator)."""
-        env = self.env
-        n = env.cfg.robot.total
-        pose = state.robots.pose
-        if noise is None:
-            noise = self.draw_noise(pose.dtype)
-        wc = self.world_cost(state)
-        st = env.statics
-        dt = float(env.cfg.control_hz)
-        # one ped prediction per solve, shared by all rollouts
-        ped_traj = predict_peds(
-            self.ped_prediction, state.peds.pos.to(pose.dtype),
-            state.peds.vel.to(pose.dtype),
-            env.crowd.max_speed.to(pose.dtype), self.cfg.horizon, dt,
-            orca_cfg=st.orca_cfg, segments=state.obstacles.segs)
-        ped_r = env.crowd.ped_r.to(pose.dtype)
-        # other robots join the avoidance set as constant-velocity tracks
-        ts = (torch.arange(1, self.cfg.horizon + 1, dtype=torch.float32,
-                           device=pose.device) * dt).to(pose.dtype)[:, None,
-                                                                   None]
-        robot_traj = pose[None, :, :2] + state.robots.vel_world[None] * ts
-        robot_r = self._robot_r.to(pose.dtype)
-        acts, nominal, costs = batched_mppi(
-            noise, mpc_state.nominal, pose, state.robots.vw_last0,
-            state.robots.vw_last1, state.robots.goal, wc,
-            st.limiter_v, st.limiter_w, ped_traj, ped_r, self.cfg,
-            self.weights, dt, env.cfg.robot_type == "omni",
-            robot_traj=robot_traj, robot_r=robot_r)
-        actions = torch.cat([acts, acts.new_zeros((n, 1))], dim=-1)
-        return actions, MpcState(nominal=nominal), costs
+        """Plan for all robots of one scene: ``act_scenes`` on a scene axis
+        of one.  Returns (actions [N,3], new MpcState, costs [N]).
+        ``noise``: optional [N, K, H, 2] standard normal draws (default:
+        drawn from the controller's generator)."""
+        actions, ms, costs = self.act_scenes(
+            map_tree(lambda x: x[None], state),
+            MpcState(nominal=mpc_state.nominal[None]),
+            None if noise is None else noise[None])
+        return actions[0], MpcState(nominal=ms.nominal[0]), costs[0]
 
     def act(self, state: WorldState, mpc_state: MpcState, noise=None):
         return self.act_fn(state, mpc_state, noise)
+
+    def init_scenes_state(self, scenes: int) -> MpcState:
+        n = self.env.cfg.robot.total
+        return MpcState(nominal=torch.zeros(
+            (scenes, n, self.cfg.horizon, 2), device=self.device))
+
+    def act_scenes(self, states: WorldState, mpc_state: MpcState,
+                   noise=None):
+        """Plan for S scenes (states with a leading [S] axis, as
+        ``parallel.BatchedNavEnv`` holds them; the JAX package vmaps
+        ``act_fn`` over scenes, bench.py:462): all S*N robots in ONE
+        ``batched_mppi`` solve, each robot against its own scene's
+        clearance field (``world_cost``), predicted peds (predicted once per
+        solve, shared by all rollouts) and nearest robots, the other robots
+        joining the avoidance set as constant-velocity tracks.  ``noise``:
+        optional [S, N, K, H, 2] draws (default: drawn from the controller's
+        generator).  Returns (actions [S, N, 3], MpcState(nominal
+        [S, N, H, 2]), costs [S, N]).  The ped prediction runs once for all
+        scenes with the 'cv' head and scene by scene with the crowd heads."""
+        env = self.env
+        r = states.robots
+        s, n = r.pose.shape[:2]
+        b = s * n
+        flat = lambda x: x.reshape((b,) + x.shape[2:])
+        pose = flat(r.pose)
+        dtype, dev = pose.dtype, pose.device
+        noise = (self.draw_noise(dtype, s) if noise is None
+                 else flat(noise))
+        st = env.statics
+        dt = float(env.cfg.control_hz)
+        horizon = self.cfg.horizon
+        pos, vel = states.peds.pos.to(dtype), states.peds.vel.to(dtype)
+        vmax = env.crowd.max_speed.to(dtype)
+        m = pos.shape[1]
+        if self.ped_prediction == "cv":
+            ped_traj = predict_peds("cv", pos.reshape(-1, 2),
+                                    vel.reshape(-1, 2), vmax.repeat(s),
+                                    horizon, dt)
+            ped_traj = ped_traj.reshape(horizon, s, m, 2).transpose(0, 1)
+        else:
+            segs = states.obstacles.segs
+            ped_traj = torch.stack([predict_peds(
+                self.ped_prediction, pos[k], vel[k], vmax, horizon, dt,
+                orca_cfg=st.orca_cfg,
+                segments=map_tree(lambda x: x[k], segs))
+                for k in range(s)])                           # [S,H,M,2]
+        ts = (torch.arange(1, horizon + 1, dtype=torch.float32, device=dev)
+              * dt).to(dtype)[:, None, None]
+        robot_traj = pose[None, :, :2] + flat(r.vel_world)[None] * ts
+        acts, nominal, costs = batched_mppi(
+            noise, flat(mpc_state.nominal), pose, flat(r.vw_last0),
+            flat(r.vw_last1), flat(r.goal), self.world_cost(states),
+            st.limiter_v, st.limiter_w, ped_traj, env.crowd.ped_r.to(dtype),
+            self.cfg, self.weights, dt, env.cfg.robot_type == "omni",
+            robot_traj=robot_traj, robot_r=self._robot_r.to(dtype).repeat(s))
+        actions = torch.cat([acts, acts.new_zeros((b, 1))], dim=-1)
+        return (actions.reshape(s, n, 3),
+                MpcState(nominal=nominal.reshape(s, n, horizon, 2)),
+                costs.reshape(s, n))

@@ -34,21 +34,24 @@ class CostWeights(NamedTuple):
 class WorldCost(NamedTuple):
     """Static per-episode data the cost closes over."""
 
-    edt: torch.Tensor           # [H,W] meters to nearest occupied cell
+    edt: torch.Tensor           # [S,H,W] meters to nearest occupied cell,
+                                # one map per scene
     resolution: float
-    obs_aabb: torch.Tensor      # [O,4] episode obstacle corners (world m)
-    obs_valid: torch.Tensor     # [O]
+    obs_aabb: torch.Tensor      # [S,O,4] episode obstacle corners (world m)
+    obs_valid: torch.Tensor     # [S,O]
     robot_radius: float
+    scene: torch.Tensor         # [N] int64 scene of each robot
 
 
 def pooled_edt(edt, pool: int):
-    """min-pool the EDT once per solve over pool-aligned blocks."""
+    """min-pool the EDT [S, H, W] once per solve over pool-aligned
+    blocks."""
     if pool <= 1:
         return edt
-    h, w = edt.shape
+    s, h, w = edt.shape
     hp, wp = h // pool * pool, w // pool * pool
-    return edt[:hp, :wp].reshape(hp // pool, pool, wp // pool,
-                                 pool).amin(dim=(1, 3))
+    return edt[:, :hp, :wp].reshape(s, hp // pool, pool, wp // pool,
+                                    pool).amin(dim=(2, 4))
 
 
 def _floor_div(a, b: int):
@@ -63,7 +66,7 @@ def local_edt_patch(wc: WorldCost, pose_xy, patch_size: int, pool: int = 1):
     holds every lookup of the solve.  Returns (patch_shape (ph, pw) in
     pooled cells, corner [N, 2] int64 in fine cells, pool-aligned).
     """
-    h, w = wc.edt.shape
+    h, w = wc.edt.shape[-2:]
     ps_h = min((patch_size + pool - 1) // pool * pool, h // pool * pool)
     ps_w = min((patch_size + pool - 1) // pool * pool, w // pool * pool)
     cell = torch.round(div_const(pose_xy, wc.resolution)).to(torch.int64)
@@ -83,25 +86,27 @@ def static_distance_patch(wc: WorldCost, edt_p, patch_shape, corner, xy,
     index gather into the pooled map — exact (the JAX package's one-hot
     MXU select is exact only up to a bf16 operand pass).  Out-of-map points
     read 0.0; AABB terms join when the cost has them."""
-    h, w = wc.edt.shape
+    h, w = wc.edt.shape[-2:]
     ps_h, ps_w = patch_shape
     cells = torch.round(div_const(xy, wc.resolution)).to(torch.int64)
     c0 = corner[:, None, 0]
     c1 = corner[:, None, 1]
     li = torch.clamp(_floor_div(cells[..., 0] - c0, pool), 0, ps_h - 1)
     lj = torch.clamp(_floor_div(cells[..., 1] - c1, pool), 0, ps_w - 1)
-    d_map = edt_p[_floor_div(c0, pool) + li, _floor_div(c1, pool) + lj]
+    d_map = edt_p[wc.scene[:, None], _floor_div(c0, pool) + li,
+                  _floor_div(c1, pool) + lj]
     inb = ((cells[..., 0] >= 0) & (cells[..., 0] < h)
            & (cells[..., 1] >= 0) & (cells[..., 1] < w))
     d_map = torch.where(inb, d_map, torch.zeros_like(d_map))
-    if wc.obs_aabb.shape[0] == 0:
+    if wc.obs_aabb.shape[1] == 0:
         return d_map
-    lo = torch.minimum(wc.obs_aabb[:, 0:2], wc.obs_aabb[:, 2:4])
-    hi = torch.maximum(wc.obs_aabb[:, 0:2], wc.obs_aabb[:, 2:4])
+    box = wc.obs_aabb[wc.scene][:, None]                      # [N,1,O,4]
+    lo = torch.minimum(box[..., 0:2], box[..., 2:4])
+    hi = torch.maximum(box[..., 0:2], box[..., 2:4])
     p = xy[..., None, :]
     dx = torch.clamp(torch.maximum(lo - p, p - hi), min=0.0)
     d_box = torch.sqrt((dx ** 2).sum(-1) + 1e-12)
-    d_box = torch.where(wc.obs_valid, d_box,
+    d_box = torch.where(wc.obs_valid[wc.scene][:, None], d_box,
                         torch.full_like(d_box, float("inf"))).amin(dim=-1)
     return torch.minimum(d_map, d_box)
 

@@ -61,12 +61,35 @@ def _rollout_costs(actions, pose, vw0, vw1, goal, wc: WorldCost,
         act = actions[:, :, t]
         v = limit_command(limiter_v, act[..., 0], a0[..., 0], a1[..., 0], dt)
         w = limit_command(limiter_w, act[..., 1], a0[..., 1], a1[..., 1], dt)
-        pose = _exact_pose_update(pose, v, w, 0.0, dt, omni)
+        pose = _exact_pose_update(pose, v, w, 0.0, dt, omni,
+                                  xla_bits=False)
         acc = acc + stage_cost(wc, w8, pose[..., :2], goal, v, w,
                                a0[..., 0], a0[..., 1], avoid_traj[:, t],
                                avoid_r, local_edt)
         a0, a1 = torch.stack([v, w], dim=-1), a0
     return acc + terminal_cost(w8, pose[..., :2], goal)
+
+
+def _scene_neighbours(poses, scene, robot_traj, robot_r, nps: int,
+                      avoid_k: int):
+    """Each robot's avoidance tracks among the robots of its own scene:
+    the k nearest others (every other, where ``avoid_k`` is 0 or at least
+    the scene's other robots), as [N, H, k, 2] tracks and [N, k] radii.
+    Set members from another scene sit 1e6 m away: the clearance term is a
+    min over the set, which they leave as it is."""
+    n = poses.shape[0]
+    k = nps - 1 if avoid_k <= 0 or avoid_k >= nps - 1 else avoid_k
+    if k == 0:
+        return (robot_traj.new_zeros((n, robot_traj.shape[0], 0, 2)),
+                robot_r.new_zeros((n, 0)))
+    diff = poses[:, None, :2] - poses[None, :, :2]
+    apart = (scene[:, None] != scene[None, :]) | torch.eye(
+        n, dtype=torch.bool, device=poses.device)
+    d2 = torch.where(apart, float("inf"), (diff ** 2).sum(-1))
+    _, near = torch.topk(-d2, k, dim=1)                       # [N, k]
+    far = torch.gather(apart, 1, near)[:, None, :, None]
+    others = robot_traj[:, near].permute(1, 0, 2, 3)          # [N, H, k, 2]
+    return torch.where(far, 1e6, others), robot_r[near]
 
 
 def batched_mppi(noise, ps_nominal, poses, vw0, vw1, goals,
@@ -75,23 +98,24 @@ def batched_mppi(noise, ps_nominal, poses, vw0, vw1, goals,
                  cfg: MppiConfig, w8: CostWeights = CostWeights(),
                  dt: float = 0.4, omni: bool = False,
                  robot_traj=None, robot_r=None):
-    """One MPPI solve per robot.  Returns (actions [N,2], nominal [N,H,2],
-    costs [N]).
+    """One MPPI solve per robot of S scenes.  Returns (actions [N,2],
+    nominal [N,H,2], costs [N]).
 
     noise: [N, K, H, 2] standard normal draws (scaled by sigma here).
-    ped_traj [H, M, 2] / ped_r [M]: predicted pedestrian positions.
+    ``wc.scene`` [N] gives each robot's scene (all zeros for one scene),
+    ``wc.edt`` is [S, H, W].
+    ped_traj [S, H, M, 2] / ped_r [M]: predicted pedestrian positions;
+    each robot reads its scene's.
     robot_traj [H, N, 2] / robot_r [N]: predicted OTHER-robot positions;
-    with ``cfg.avoid_k`` each planner scores only its k currently-nearest
-    other robots (the clearance term is a min, which near neighbours
-    decide; all-pairs scoring is O(N^2 K H)).  Otherwise every other robot
-    joins and a planner's own track is pushed 1e6 m away.
+    with ``cfg.avoid_k`` each planner scores only the k currently-nearest
+    other robots of its scene (the clearance term is a min, which near
+    neighbours decide; all-pairs scoring is O(N^2 K H)), else every other
+    robot of its scene.
     """
     if cfg.goal_field:
         raise NotImplementedError("MppiConfig.goal_field (geodesic goal "
                                   "term) is not ported")
     n = poses.shape[0]
-    h = cfg.horizon
-    dev, dt_ = poses.device, poses.dtype
     # per channel with Python scalars: no host-to-device copies in the solve
     cand = torch.stack([
         (ps_nominal[:, None, :, 0] + noise[..., 0] * cfg.sigma_v).clamp(
@@ -99,23 +123,12 @@ def batched_mppi(noise, ps_nominal, poses, vw0, vw1, goals,
         (ps_nominal[:, None, :, 1] + noise[..., 1] * cfg.sigma_w).clamp(
             cfg.w_range[0], cfg.w_range[1])], dim=-1)
 
-    m = ped_traj.shape[1]
-    avoid_traj = ped_traj[None].expand(n, h, m, 2)
-    avoid_r = ped_r[None].expand(n, m)
+    avoid_traj = ped_traj[wc.scene]                           # [N, H, M, 2]
+    avoid_r = ped_r[None].expand(n, ped_traj.shape[-2])
     if robot_traj is not None:
-        if not cfg.exact_cost and 0 < cfg.avoid_k < n - 1:
-            diff = poses[:, None, :2] - poses[None, :, :2]
-            d2 = (diff ** 2).sum(-1) + torch.where(
-                torch.eye(n, dtype=torch.bool, device=dev),
-                float("inf"), 0.0).to(dt_)
-            _, near = torch.topk(-d2, cfg.avoid_k, dim=1)     # [N, k]
-            others = robot_traj[:, near].permute(1, 0, 2, 3)  # [N, H, k, 2]
-            others_r = robot_r[near]
-        else:
-            others = robot_traj[None].expand(n, -1, -1, -1).clone()
-            idx = torch.arange(n, device=dev)
-            others[idx, :, idx] = 1e6
-            others_r = robot_r[None].expand(n, -1)
+        others, others_r = _scene_neighbours(
+            poses, wc.scene, robot_traj, robot_r, n // wc.edt.shape[0],
+            0 if cfg.exact_cost else cfg.avoid_k)
         avoid_traj = torch.cat([avoid_traj, others], dim=2)
         avoid_r = torch.cat([avoid_r, others_r], dim=1)
 

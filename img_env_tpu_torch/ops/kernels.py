@@ -35,10 +35,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # name -> (C symbol, argtypes); every symbol returns int (cudaError_t)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "raster": ("img_env_raster_robots", (_P, _P, _I, _I, _I, _I, _P, _P)),
+    "raster": ("img_env_raster_robots",
+               (_P, _P, _I, _I, _I, _I, _I, _P, _P)),
     "fill": ("img_env_fill_sorted",
-             (_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
-              _P, _P)),
+             (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P,
+              _P, _P, _P)),
     "paint": ("img_env_paint_slots", (_P, _P, _I, _I, _P, _P, _P, _I, _P)),
     "pedmap": ("img_env_ped_map",
                (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P)),

@@ -15,6 +15,11 @@ robots on that layout:
      first occupied sample — the exact first hit with no per-sample gather.
   3. **Stamp + resize**: the robot's own footprint (value 100) and the
      48x48 cv2 INTER_CUBIC resize as a 16-tap gather-sum.
+
+Without lasers (``use_laser=False``) the raycast and painter give way to
+``inside_sorted`` and ``plain_values_sorted``.  A scene batch fills flat
+over its S*N robots, robot i reading the map of scene i // N; a sensor
+group's robots pass their in-scene ids (``rids``) for self-exclusion.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import torch
 from img_env_tpu_torch.constants import (
     ANGULAR_MAP_SIZE,
     CELL_SELF_IN_VIEW,
+    CELL_UNSEEN,
+    CELL_VIEW_FREE,
     LASER_MISS_DIST,
 )
 from img_env_tpu_torch.ops import f32, kernels
@@ -354,31 +361,41 @@ def decode_packed(v, rid1):
     return static_occ | (cnt >= 2) | ((cnt == 1) & (vid != rid1))
 
 
+def _slot_cells(cos, sin, px, py, bx, by, resolution: float):
+    """Cells (m, n) int64 [N, L] of slots at base-frame (bx, by) [L] under
+    the poses' terms [N]: XLA's contraction of the rotation
+    (raster.transform_points), the division as a product with the f32
+    reciprocal, rounded half away from zero."""
+    c, s = cos[:, None], sin[:, None]
+    wx = f32.fma(c, bx[None], -(s * by[None])) + px[:, None]
+    wy = f32.fma(s, bx[None], c * by[None]) + py[:, None]
+    return (round_half_away(div_const(wx, resolution)).to(torch.int64),
+            round_half_away(div_const(wy, resolution)).to(torch.int64))
+
+
 def fill_sorted_twin(packed, cos, sin, px, py, pix_x, pix_y, n_fill: int,
-                     resolution: float, nps: Optional[int] = None):
+                     resolution: float, nps: Optional[int] = None,
+                     rids=None):
     """Plain-torch K2: [N, P'] bool gated-prefix occupancy.
 
     packed: [H, W] or [S, H, W] int32 (robot i reads scene i // nps and has
-    in-scene id i % nps + 1); cos/sin/px/py: [N] f32 pose terms;
-    pix_x/pix_y: [P'] f32 slot coordinates, of which the first ``n_fill``
-    (the gated prefix) are filled and the rest are zero.
+    in-scene id ``rids[i]``, by default i % nps + 1); cos/sin/px/py: [N]
+    f32 pose terms; pix_x/pix_y: [P'] f32 slot coordinates, of which the
+    first ``n_fill`` (the gated prefix) are filled and the rest are zero.
     """
     maps = packed if packed.dim() == 3 else packed[None]
     _, h, w = maps.shape
     n = cos.shape[0]
     nps = nps or n
-    bx, by = pix_x[:n_fill][None], pix_y[:n_fill][None]
-    c, s = cos[:, None], sin[:, None]
-    # XLA's contraction of the rotation (raster.transform_points)
-    wx = f32.fma(c, bx, -(s * by)) + px[:, None]
-    wy = f32.fma(s, bx, c * by) + py[:, None]
-    cm = round_half_away(div_const(wx, resolution)).to(torch.int64)
-    cn = round_half_away(div_const(wy, resolution)).to(torch.int64)
+    cm, cn = _slot_cells(cos, sin, px, py, pix_x[:n_fill], pix_y[:n_fill],
+                         resolution)
     inside = (cm >= 0) & (cm < h) & (cn >= 0) & (cn < w)
     ridx = torch.arange(n, device=cos.device)
+    if rids is None:
+        rids = ridx % nps + 1
     scene = (ridx // nps)[:, None]
     v = maps[scene, cm.clamp(0, h - 1), cn.clamp(0, w - 1)]
-    occ = inside & decode_packed(v, (ridx % nps + 1)[:, None])
+    occ = inside & decode_packed(v, rids[:, None])
     out = torch.zeros((n, pix_x.shape[0]), dtype=torch.bool,
                       device=cos.device)
     out[:, :n_fill] = occ
@@ -408,10 +425,11 @@ def occupancy_bits_twin(packed):
 
 
 def fill_sorted_kernel(packed, cos, sin, px, py, pix_x, pix_y, n_fill: int,
-                       resolution: float, nps: Optional[int] = None):
+                       resolution: float, nps: Optional[int] = None,
+                       rids=None):
     """K2 on the card (csrc/fill.cu): the occupancy-bitmap pre-pass into a
     scratch [S, h, bitmap_words(w)] int32 buffer, then the fill; same
-    contract as the twin."""
+    contract as the twin (``rids``: int32 [N] on the card)."""
     maps = packed if packed.dim() == 3 else packed[None]
     n = cos.shape[0]
     nps = nps or n
@@ -428,6 +446,10 @@ def fill_sorted_kernel(packed, cos, sin, px, py, pix_x, pix_y, n_fill: int,
     if n % nps or scenes != n // nps or nps >= 4096:
         raise ValueError("fill kernel: robots must tile the scenes, and "
                          "in-scene ids stay <= 4095")
+    if rids is not None:
+        if rids.dtype != torch.int32 or rids.shape != (n,):
+            raise ValueError("fill kernel takes int32 [N] robot ids")
+        kernels.check_cuda(rids)
     n_slots = pix_x.shape[0]
     if n_fill % 8 or n_slots % 8 or pix_x.data_ptr() % 16 \
             or pix_y.data_ptr() % 16:
@@ -439,26 +461,63 @@ def fill_sorted_kernel(packed, cos, sin, px, py, pix_x, pix_y, n_fill: int,
     out = torch.empty((n, n_slots), dtype=torch.bool, device=cos.device)
     kernels.launch("fill", maps.data_ptr(), bits.data_ptr(), scenes, h, w,
                    cos.data_ptr(), sin.data_ptr(), px.data_ptr(),
-                   py.data_ptr(), nps, n_fill, n_slots,
+                   py.data_ptr(), 0 if rids is None else rids.data_ptr(),
+                   nps, n_fill, n_slots,
                    float(np.float32(1.0) / np.float32(resolution)),
                    pix_x.data_ptr(), pix_y.data_ptr(), out.data_ptr())
     return out
 
 
 def fill_sorted(ps: PolarStatics, t: PolarTables, packed, poses,
-                resolution: float):
+                resolution: float, rids=None):
     """[N, P'] bool GATED-prefix occupancy (self excluded), ungated suffix
     zero: K2 for CUDA tensors, its twin for CPU tensors.  Every consumer
-    reads occupancy through the gates."""
+    reads occupancy through the gates.  packed [H, W] or [S, H, W]: robot i
+    of poses [N, 3] (scene-major) reads scene i // (N / S); ``rids``: its
+    1-based in-scene id, int32 [N] (default i % (N / S) + 1)."""
     poses = poses.to(torch.float32)
     sin, cos = f32.sin_cos(poses[:, 2])
     px, py = poses[:, 0].contiguous(), poses[:, 1].contiguous()
     nf = int(ps.n_fill_slots)
+    scenes = packed.shape[0] if packed.dim() == 3 else 1
+    nps = poses.shape[0] // scenes
     if packed.is_cuda:
         return fill_sorted_kernel(packed.contiguous(), cos, sin, px, py,
-                                  t.pix_x, t.pix_y, nf, resolution)
+                                  t.pix_x, t.pix_y, nf, resolution, nps,
+                                  rids)
     return fill_sorted_twin(packed, cos, sin, px, py, t.pix_x, t.pix_y, nf,
-                            resolution)
+                            resolution, nps, rids)
+
+
+def inside_sorted(ps: PolarStatics, t: PolarTables, map_shape, poses,
+                  resolution: float):
+    """[N, P'] bool: the slot's world cell lies inside the grid map (the
+    reference's FOV fill writes only where ``grid_map.is_in_map`` holds,
+    agent.cpp:392-401).  The fill's coordinate arithmetic, bit for bit;
+    computed over the gated prefix, the only slots its consumer reads
+    through the gates, and False beyond."""
+    h, w = map_shape
+    poses = poses.to(torch.float32)
+    sin, cos = f32.sin_cos(poses[:, 2])
+    nf = int(ps.n_fill_slots)
+    cm, cn = _slot_cells(cos, sin, poses[:, 0], poses[:, 1], t.pix_x[:nf],
+                         t.pix_y[:nf], resolution)
+    out = torch.zeros((poses.shape[0], ps.n_slots), dtype=torch.bool,
+                      device=poses.device)
+    out[:, :nf] = (cm >= 0) & (cm < h) & (cn >= 0) & (cn < w)
+    return out
+
+
+def plain_values_sorted(t: PolarTables, occ_sorted, inside):
+    """use_laser=False view values, sorted order: 0 on gated occupied
+    slots, the free value on gated in-map slots, the 200 background
+    elsewhere (out-of-world slots keep it: the is_in_map gate wraps both
+    FOV-fill writes, agent.cpp:392-401)."""
+    gates = t.gates[None]
+    return torch.where(
+        gates & occ_sorted, 0.0,
+        torch.where(gates & inside, float(CELL_VIEW_FREE),
+                    float(CELL_UNSEEN))).to(torch.float32)
 
 
 def raycast_batched(ps: PolarStatics, t: PolarTables, occ_sorted):

@@ -72,15 +72,29 @@ def _flat_idx(cells, h: int, w: int):
     return torch.where(inside, m * w + n, torch.full_like(m, h * w)), inside
 
 
-def scatter_occupancy(cells, valid, h: int, w: int):
-    """bool [H, W]: cell covered by any valid point."""
+def _scene_flat_idx(cells, valid, h: int, w: int):
+    """Indices into S stacked [H, W] maps of cells [S, ..., 2] (scene s
+    offset by s*h*w); invalid and out-of-map points get the sentinel
+    S*h*w."""
+    s = cells.shape[0]
     flat, inside = _flat_idx(cells, h, w)
-    flat = torch.where(valid & inside, flat, torch.full_like(flat, h * w))
-    buf = torch.zeros(h * w + 1, dtype=torch.bool, device=cells.device)
+    scene = torch.arange(s, device=cells.device).reshape(
+        (s,) + (1,) * (flat.dim() - 1))
+    return torch.where(valid & inside, flat + scene * (h * w),
+                       torch.full_like(flat, s * h * w))
+
+
+def scatter_occupancy(cells, valid, h: int, w: int):
+    """bool [S, H, W]: cell of scene s covered by any valid point of cells
+    [S, ..., 2] (valid broadcasts against cells[..., 0])."""
+    s = cells.shape[0]
+    flat = _scene_flat_idx(cells, valid, h, w)
+    buf = torch.zeros(s * h * w + 1, dtype=torch.bool, device=cells.device)
     # index_fill_ takes the value as a scalar argument (assigning a Python
-    # value copies it to the device, a host sync); bucket h*w is dropped
+    # value copies it to the device, a host sync); the sentinel bucket is
+    # dropped
     buf.index_fill_(0, flat.reshape(-1), True)
-    return buf[: h * w].reshape(h, w)
+    return buf[: s * h * w].reshape(s, h, w)
 
 
 def stamp_value(grid, cells, valid, value: int):
@@ -118,40 +132,53 @@ def check_footprint_span(robot_points, resolution: float) -> int:
 
 
 def robot_maps_twin(cells, valid, h: int, w: int):
-    """Plain-torch K1: int32 [H, W] sum over robots r covering the cell of
-    ((r + 1) << 12) | 1, each robot counted once per cell."""
-    n = cells.shape[0]
-    flat, inside = _flat_idx(cells, h, w)
-    flat = torch.where(valid & inside, flat, torch.full_like(flat, h * w))
-    s, _ = torch.sort(flat, dim=1)
-    first = torch.ones_like(s, dtype=torch.bool)
-    first[:, 1:] = s[:, 1:] != s[:, :-1]
-    contrib = ((torch.arange(1, n + 1, device=cells.device) << 12) | 1)
-    weight = torch.where(first & (s < h * w), contrib[:, None].expand_as(s),
-                         torch.zeros_like(s))
-    buf = torch.zeros(h * w + 1, dtype=torch.int64, device=cells.device)
-    buf.index_add_(0, s.reshape(-1), weight.reshape(-1))
-    return buf[: h * w].reshape(h, w).to(torch.int32)
+    """Plain-torch K1: cells [S, N, P, 2], valid [N, P] ->
+    int32 [S, H, W], the sum over the robots r of scene s covering the cell
+    of ((r + 1) << 12) | 1, each robot counted once per cell (r is the
+    robot's index within its scene).  One scene's cells [N, P, 2] give
+    [H, W]."""
+    if cells.dim() == 3:
+        return robot_maps_twin(cells[None], valid, h, w)[0]
+    s, n = cells.shape[:2]
+    flat = _scene_flat_idx(cells, valid, h, w).reshape(s * n, -1)
+    srt, _ = torch.sort(flat, dim=1)
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    contrib = ((torch.arange(1, n + 1, device=cells.device) << 12) | 1
+               ).repeat(s)
+    weight = torch.where(first & (srt < s * h * w),
+                         contrib[:, None].expand_as(srt),
+                         torch.zeros_like(srt))
+    buf = torch.zeros(s * h * w + 1, dtype=torch.int64, device=cells.device)
+    buf.index_add_(0, srt.reshape(-1), weight.reshape(-1))
+    return buf[: s * h * w].reshape(s, h, w).to(torch.int32)
 
 
 def robot_maps_kernel(cells, valid, h: int, w: int):
-    """K1 on the card (csrc/raster.cu).  cells [N, P, 2] int32, valid
-    [N, P] bool, both CUDA."""
+    """K1 on the card (csrc/raster.cu): one launch for every scene.  cells
+    [S, N, P, 2] int32, valid [N, P] bool (the same footprints in every
+    scene), both CUDA; -> int32 [S, H, W] (one scene's cells [N, P, 2]:
+    [H, W])."""
+    if cells.dim() == 3:
+        return robot_maps_kernel(cells[None], valid, h, w)[0]
     if cells.dtype != torch.int32 or valid.dtype != torch.bool:
         raise ValueError("raster kernel takes int32 cells and bool valid")
-    if cells.dim() != 3 or cells.shape[2] != 2 or valid.shape != cells.shape[:2]:
-        raise ValueError("raster kernel takes cells [N,P,2], valid [N,P]")
-    if cells.shape[0] >= 4096:
+    if (cells.dim() != 4 or cells.shape[3] != 2
+            or valid.shape != cells.shape[1:3]):
+        raise ValueError("raster kernel takes cells [S,N,P,2], valid [N,P]")
+    s, n, p = cells.shape[:3]
+    if n >= 4096:
         raise ValueError("the packed map carries robot ids <= 4095")
     kernels.check_cuda(cells, valid)
-    out = torch.empty((h, w), dtype=torch.int32, device=cells.device)
+    out = torch.empty((s, h, w), dtype=torch.int32, device=cells.device)
     kernels.launch("raster", cells.data_ptr(), valid.data_ptr(),
-                   cells.shape[0], cells.shape[1], h, w, out.data_ptr())
+                   s, n, p, h, w, out.data_ptr())
     return out
 
 
 def robot_maps(cells, valid, h: int, w: int):
-    """(robot_count [H,W], robot_id_sum [H,W]) int32: K1 on a CUDA tensor,
+    """(robot_count, robot_id_sum) int32 [S, H, W] from cells
+    [S, N, P, 2] ([H, W] from one scene's [N, P, 2]): K1 on a CUDA tensor,
     its twin on a CPU tensor."""
     total = (robot_maps_kernel(cells.contiguous(), valid.contiguous(), h, w)
              if cells.is_cuda else robot_maps_twin(cells, valid, h, w))
@@ -159,23 +186,37 @@ def robot_maps(cells, valid, h: int, w: int):
 
 
 class OccupancyLayers(NamedTuple):
-    """Per-step composed occupancy for one scene."""
+    """Per-step composed occupancy of S scenes."""
 
-    obs_map: torch.Tensor          # [H,W] uint8 static+obstacles
-    ped_strong: torch.Tensor       # [H,W] bool right-leg stamps
-    ped_weak: torch.Tensor         # [H,W] bool left-leg / circle-ped stamps
-    robot_count: torch.Tensor      # [H,W] int32 distinct robots per cell
-    robot_cells: torch.Tensor      # [N,P,2] int32 cells of each robot's points
+    obs_map: torch.Tensor          # [S,H,W] uint8 static+obstacles
+    ped_strong: torch.Tensor       # [S,H,W] bool right-leg stamps
+    ped_weak: torch.Tensor         # [S,H,W] bool left-leg / circle-ped stamps
+    robot_count: torch.Tensor      # [S,H,W] int32 distinct robots per cell
+    robot_cells: torch.Tensor      # [S,N,P,2] int32 cells of robot points
     robot_cells_valid: torch.Tensor  # [N,P] bool
-    packed: torch.Tensor           # [H,W] int32 (bit layout in the module doc)
+    packed: torch.Tensor           # [S,H,W] int32 (bit layout in the module doc)
 
 
 def build_layers(obs_map, resolution, robot_pose, robot_points, robot_mask,
                  ped_pose, ped_body_points, ped_body_mask,
                  ped_left_points, ped_left_mask,
                  ped_right_points, ped_right_mask) -> OccupancyLayers:
-    """Scatter all dynamic agents into the layered occupancy."""
-    h, w = obs_map.shape
+    """Scatter all dynamic agents of S scenes into the layered occupancy.
+
+    obs_map [S, H, W]; robot_pose [S, N, 3] and ped_pose [S, M, 3]; the
+    footprint clouds [N, P, 2] / [M, L, 2] are shared by the scenes, or
+    [S, M, L, 2] per scene (the gait-shifted legs); masks [N, P] / [M, L].
+    Every layer is elementwise over the scenes, and all scenes' robots go
+    through one K1 launch.  One scene (obs_map [H, W], poses [N, 3] and
+    [M, 3]) gives layers without the scene axis."""
+    if obs_map.dim() == 2:
+        lay = build_layers(
+            obs_map[None], resolution, robot_pose[None], robot_points,
+            robot_mask, ped_pose[None], ped_body_points, ped_body_mask,
+            ped_left_points, ped_left_mask, ped_right_points, ped_right_mask)
+        return lay._replace(**{f: getattr(lay, f)[0] for f in lay._fields
+                               if f != "robot_cells_valid"})
+    _, h, w = obs_map.shape
     if robot_points.shape[0] >= 4096:
         raise ValueError(
             "packed-map robot ids use bits 3..14 (<= 4095 robots)")
@@ -184,14 +225,17 @@ def build_layers(obs_map, resolution, robot_pose, robot_points, robot_mask,
     robot_count, robot_id = robot_maps(r_cells, robot_mask, h, w)
 
     # the body, left-leg (weak) and right-leg (strong) points in one pass
-    n_weak = ped_body_points.shape[1] + ped_left_points.shape[1]
-    p_cells = world_to_cell(transform_points(ped_pose, torch.cat(
-        [ped_body_points, ped_left_points, ped_right_points], dim=1)),
-        resolution)
+    s, m = ped_pose.shape[:2]
+    clouds = [x.expand((s,) + x.shape[-3:])
+              for x in (ped_body_points, ped_left_points, ped_right_points)]
+    n_weak = clouds[0].shape[2] + clouds[1].shape[2]
+    p_cells = world_to_cell(transform_points(
+        ped_pose, torch.cat(clouds, dim=2)), resolution)
     ped_weak = scatter_occupancy(
-        p_cells[:, :n_weak], torch.cat([ped_body_mask, ped_left_mask], dim=1),
-        h, w)
-    ped_strong = scatter_occupancy(p_cells[:, n_weak:], ped_right_mask, h, w)
+        p_cells[:, :, :n_weak],
+        torch.cat([ped_body_mask, ped_left_mask], dim=1), h, w)
+    ped_strong = scatter_occupancy(p_cells[:, :, n_weak:], ped_right_mask,
+                                   h, w)
 
     return OccupancyLayers(
         obs_map=obs_map, ped_strong=ped_strong, ped_weak=ped_weak,
@@ -226,12 +270,21 @@ def collision_codes(layers: OccupancyLayers, latched_collision,
     """Reference collision codes per robot (agent.cpp:285-327, 356-361):
     per footprint point the draw-priority category (1 obstacle, 2 ped,
     3 other robot), the LAST nonzero point wins; latched robots keep
-    theirs (``Agent::view`` early-returns, agent.cpp:358)."""
+    theirs (``Agent::view`` early-returns, agent.cpp:358).  Layers of S
+    scenes and latched [S, N] give codes [S, N] int32; one scene's, [N]."""
+    if layers.packed.dim() == 2:
+        one = layers._replace(packed=layers.packed[None],
+                              robot_cells=layers.robot_cells[None])
+        return collision_codes(one, latched_collision[None],
+                               latched_arrive[None])[0]
     cells, valid = layers.robot_cells, layers.robot_cells_valid
-    h, w = layers.packed.shape
+    _, h, w = layers.packed.shape
+    s = cells.shape[0]
     m, n = cells[..., 0].long(), cells[..., 1].long()
     inside = (m >= 0) & (m < h) & (n >= 0) & (n < w)
-    v = layers.packed[m.clamp(0, h - 1), n.clamp(0, w - 1)]
+    scene = torch.arange(s, device=cells.device)[:, None, None]
+    flat = (scene * h + m.clamp(0, h - 1)) * w + n.clamp(0, w - 1)
+    v = layers.packed.reshape(-1)[flat]
     v = torch.where(inside, v, torch.zeros_like(v))
     ped_hit = (v >> 15) & 1
     obs_hit = (v >> 16) & 1
@@ -239,13 +292,13 @@ def collision_codes(layers: OccupancyLayers, latched_collision,
     code = torch.where(obs_hit > 0, 1, torch.where(
         ped_hit > 0, 2, torch.where(other_robot, 3, 0)))
     code = torch.where(valid & inside, code, torch.zeros_like(code))
-    p = code.shape[1]
+    p = code.shape[-1]
     # last nonzero point: the largest index with code != 0
     idx = torch.arange(p, device=code.device).expand_as(code)
-    last = torch.where(code != 0, idx, torch.full_like(idx, -1)).amax(dim=1)
+    last = torch.where(code != 0, idx, torch.full_like(idx, -1)).amax(dim=-1)
     fresh = torch.where(
         last >= 0,
-        torch.gather(code, 1, last.clamp(min=0)[:, None])[:, 0],
+        torch.gather(code, -1, last.clamp(min=0)[..., None])[..., 0],
         torch.zeros_like(last)).to(torch.int32)
     keep = (latched_collision > 0) | latched_arrive
     return torch.where(keep, latched_collision.to(torch.int32), fresh)

@@ -6,7 +6,9 @@ bitmap too large for shared memory (K2); the painter's dense near-sensor
 slots on forced thresholds (K3, and K5 on the same); ped counts off the shared-memory tile,
 peds on the +-3 m window edge, exact range ties, no ped in any window and
 600 in one (K4); the gen-1 block painter with wide slots (K5); and the
-scenario sampler on a CUDA generator.
+scenario sampler on a CUDA generator.  The scene batch: K1 over S = 1, 3
+and 16 scenes in one launch, K2 with explicit in-scene ids (a sensor
+group's robots), K3 and K5 on a fast-mode grid's tables.
 
 These need an NVIDIA GPU and nvcc and skip without them.  On the machine
 with the card (which has no JAX) run them without the JAX test conftest:
@@ -135,6 +137,84 @@ def test_fill_and_paint_kernels_match_twins(dev, n):
     s_hit, s_tail = painter.hit_steps(pst, tt, *aux)
     got = painter.paint_slots_kernel(tt, s_hit, s_tail, pst.n_slots)
     assert torch.equal(got, painter.paint_sorted(pst, tt, s_hit, s_tail))
+
+
+@pytest.mark.parametrize("s,n", [(1, 37), (3, 5), (16, 12)])
+def test_raster_kernel_scene_axis(dev, s, n):
+    """S scenes in one launch, robots overlapping within and across scenes
+    (ids are in-scene), footprint masks shared by the scenes."""
+    scenes = [_scene(n, 300 + k, dev) for k in range(s)]
+    static, pts, msk = scenes[0][1:]
+    poses = torch.stack([x[0] for x in scenes])
+    poses[1:, 0] = poses[0, 0]                    # the same cell in scenes
+    cells = raster.world_to_cell(raster.transform_points(poses, pts), RES)
+    got = raster.robot_maps_kernel(cells, msk, *static.shape)
+    want = raster.robot_maps_twin(cells, msk, *static.shape)
+    assert got.shape == (s,) + tuple(static.shape)
+    assert torch.equal(got, want)
+    assert int((got & 0xFFF).max()) >= 2
+
+
+@pytest.mark.parametrize("scenes", [1, 4])
+def test_fill_kernel_with_rids(dev, scenes):
+    """A sensor group's robots, in-scene ids 1, 3, 4 of 4 (robot 2 stands
+    on robot 0; ids from group positions would change the fill)."""
+    ids = np.asarray([1, 3, 4], np.int32)
+    packs, poses = [], []
+    for k in range(scenes):
+        pose, static, pts, msk = _scene(4, 400 + k, dev)
+        pose[1, :2] = pose[0, :2] + 0.04
+        e = torch.zeros((0, 1, 2), device=dev)
+        eb = torch.zeros((0, 1), dtype=torch.bool, device=dev)
+        packs.append(raster.build_layers(
+            static, RES, pose, pts, msk, torch.zeros((0, 3), device=dev),
+            e, eb, e, eb, e, eb).packed)
+        poses.append(pose[torch.as_tensor(ids - 1, device=dev).long()])
+    packed, poses = torch.stack(packs), torch.cat(poses)
+    ps = polar.PolarStatics.build(VP, n_chunks=8)
+    tp = polar.make_tables(ps, np.zeros((3, ps.n_slots), bool), dev)
+    rids = torch.as_tensor(np.tile(ids, scenes), device=dev)
+    sin, cos = f32.sin_cos(poses[:, 2])
+    args = (packed, cos, sin, poses[:, 0].contiguous(),
+            poses[:, 1].contiguous(), tp.pix_x, tp.pix_y, ps.n_fill_slots,
+            RES, 3)
+    got = polar.fill_sorted_kernel(*args, rids=rids)
+    want = polar.fill_sorted_twin(*args, rids=rids)
+    assert torch.equal(got, want) and bool(want.any())
+    assert not torch.equal(got, polar.fill_sorted_kernel(*args))
+
+
+@pytest.mark.parametrize("scale", [2, 3])
+def test_paint_kernel_on_fast_tables(dev, scale):
+    """K3 and K5 (and K2 before them) on the fast grid: the view coarsened
+    by ``scale``, as sensor_mode='fast' builds it."""
+    n = 37
+    poses, static, pts, msk = _scene(n, 500 + scale, dev)
+    vp = VP._replace(hpx=VP.hpx // scale, wpx=VP.wpx // scale,
+                     resolution=RES * scale)
+    ps = polar.PolarStatics.build(vp)
+    pst = painter.PainterStatics.build(ps)
+    tp = polar.make_tables(ps, np.zeros((n, ps.n_slots), bool), dev)
+    tt = painter.make_painter_tables(pst, painter.PaintSlots.build(pst), dev)
+    e = torch.zeros((0, 1, 2), device=dev)
+    eb = torch.zeros((0, 1), dtype=torch.bool, device=dev)
+    layers = raster.build_layers(static, RES, poses, pts, msk,
+                                 torch.zeros((0, 3), device=dev),
+                                 e, eb, e, eb, e, eb)
+    occ = polar.fill_sorted(ps, tp, layers.packed, poses, RES)
+    sin, cos = f32.sin_cos(poses[:, 2])
+    assert torch.equal(occ, polar.fill_sorted_twin(
+        layers.packed, cos, sin, poses[:, 0], poses[:, 1], tp.pix_x,
+        tp.pix_y, ps.n_fill_slots, RES))
+    _, _, aux = polar.raycast_batched(ps, tp, occ)
+    s_hit, s_tail = painter.hit_steps(pst, tt, *aux)
+    got = painter.paint_slots_kernel(tt, s_hit, s_tail, pst.n_slots)
+    want = painter.paint_sorted(pst, tt, s_hit, s_tail)
+    assert torch.equal(got, want)
+    tb = painter.make_painter_tables(pst, painter.PaintBlocks.build(
+        pst, vp.range_total), dev)
+    assert torch.equal(painter.paint_blocks_kernel(tb, s_hit, s_tail,
+                                                   pst.n_slots), want)
 
 
 @pytest.mark.parametrize("n,h,w,nps", [(6, 150, 150, 3), (5, 1700, 1100, 5),

@@ -8,6 +8,8 @@ cannot be reproduced in torch, so the JAX sampler's layout is injected into
 ``reset_from_sample`` and the states are teacher-forced step by step.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -24,6 +26,12 @@ from img_env_tpu_torch.core.convert import (
 from img_env_tpu_torch.crowd.obstacle_split import split_segments
 from img_env_tpu_torch.env.nav_env import NavEnv
 from img_env_tpu_torch.env.sampler import ScenarioSample
+
+# The port's CPU tests run torch on one thread.  A test run's workers
+# share the machine's cores, and torch's intra-op pool in each of them
+# oversubscribes the cores: a parallel run of tests/ took ~5x longer.
+# Every worker imports this module when it collects the tests.
+torch.set_num_threads(1)
 
 N_ROB = 4
 
@@ -80,6 +88,19 @@ def envs():
     return env_j, env_t
 
 
+def _assert_vector_states(got, want):
+    """Goal coordinates and velocities bit-exact; the relative yaw (column
+    2 where state_dim is 3 or 5) within one float32 ulp: XLA takes glibc's
+    atan2f, which is not correctly rounded, and the port the correctly
+    rounded atan2 of the same glibc sin/cos (ROADMAP F17)."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    exact = [k for k in range(got.shape[1]) if k != 2 or got.shape[1] == 4]
+    np.testing.assert_array_equal(got[:, exact], want[:, exact])
+    if got.shape[1] != 4:
+        np.testing.assert_array_max_ulp(got[:, 2], want[:, 2], maxulp=1)
+
+
 def _assert_obs_exact(obs_t, obs_j):
     for f in ("sensor_maps", "lasers", "angular_maps", "is_collisions",
               "is_arrives"):
@@ -114,14 +135,14 @@ def test_reset_from_jax_sample(envs, seed):
     np.testing.assert_allclose(state_t.obs_edt.numpy(),
                                np.asarray(state_j.obs_edt), atol=1e-5)
     _assert_obs_exact(obs_t, obs_j)
-    np.testing.assert_allclose(obs_t.vector_states.numpy(),
-                               np.asarray(obs_j.vector_states), atol=1e-5)
+    _assert_vector_states(obs_t.vector_states.numpy(), obs_j.vector_states)
 
 
 def test_teacher_forced_steps(envs):
-    """Each step starts from the JAX state converted in.  Kinematics agree
-    to f32 rounding; the sensor surfaces, codes, rewards and dones agree
-    exactly given the same (JAX) poses."""
+    """Each step starts from the JAX state converted in.  The port's own
+    step gives the JAX poses and vector states bit for bit (the relative
+    yaw within an ulp), and the sensor surfaces, codes, rewards and dones
+    exactly."""
     env_j, env_t = envs
     rng = np.random.default_rng(0)
     with jax.enable_x64(False):
@@ -138,12 +159,14 @@ def test_teacher_forced_steps(envs):
         # the port's own step from the same state
         st_t, obs_t, rew_t, done_t, info = env_t.step_fn(
             state_in, torch.as_tensor(acts))
-        np.testing.assert_allclose(st_t.robots.pose.numpy(),
-                                   np.asarray(state_j.robots.pose),
-                                   atol=1e-5)
-        np.testing.assert_allclose(obs_t.vector_states.numpy(),
-                                   np.asarray(obs_j.vector_states),
-                                   atol=1e-5)
+        for f in ("pose", "vw_last0", "vw_last1", "vel_world"):
+            np.testing.assert_array_equal(
+                getattr(st_t.robots, f).numpy(),
+                np.asarray(getattr(state_j.robots, f)), err_msg=f)
+        _assert_vector_states(obs_t.vector_states.numpy(),
+                              obs_j.vector_states)
+        np.testing.assert_array_equal(obs_t.step_ds.numpy(),
+                                      np.asarray(obs_j.step_ds))
         np.testing.assert_array_equal(obs_t.is_arrives.numpy(),
                                       np.asarray(obs_j.is_arrives))
         np.testing.assert_array_equal(info["beeps"].numpy(), 0)
@@ -172,15 +195,44 @@ def test_state_roundtrip(envs):
 
 
 @pytest.mark.parametrize("override", [
-    {"sensor_mode": "fast"},
     {"sensor_mode": "reference"},
-    {"use_laser": False},
-    {"num_scenes": 2},
+    {"sensor_mode": "reference", "use_laser": False},
+    {"sensor_mode": "reference", "num_scenes": 2},
+    {"num_scenes": 2, "mesh": True},
 ])
 def test_unported_options_raise(override):
+    """What the port does not run raises: the per-robot gather sensor mode
+    (in the single env and in a scene batch) and a device mesh over the
+    scenes.  Fast mode, use_laser=False, num_scenes and sensor groups run
+    (tests/test_torch_fast_mode.py, test_torch_multiscene.py,
+    test_torch_hetero_sensors.py)."""
+    from img_env_tpu_torch.parallel import BatchedNavEnv
+
     d = small_cfg_dict()
     d.update(override)
+    mesh = d.pop("mesh", None)
+    cfg = EnvConfig.from_dict(d)
     with pytest.raises(NotImplementedError):
+        if cfg.num_scenes > 1:
+            BatchedNavEnv(cfg, "cpu", mesh=object() if mesh else None)
+        else:
+            NavEnv(cfg, "cpu")
+
+
+@pytest.mark.parametrize("override", [
+    {"sensor_mode": "fast"}, {"use_laser": False}, {"num_scenes": 2}])
+def test_fast_no_laser_and_num_scenes_options_run(override):
+    d = small_cfg_dict()
+    d.update(override)
+    env = NavEnv(EnvConfig.from_dict(d), "cpu")
+    _, obs = env.reset()
+    assert obs.sensor_maps.shape == (N_ROB, 48, 48)
+
+
+def test_unknown_sensor_mode_raises():
+    d = small_cfg_dict()
+    d["sensor_mode"] = "parityy"
+    with pytest.raises(ValueError, match="parityy"):
         NavEnv(EnvConfig.from_dict(d), "cpu")
 
 
@@ -199,22 +251,38 @@ def test_unknown_crowd_model_raises():
 PED_EXACT = ("ped_vector_states", "ped_maps", "ped_min_dists")
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_programs(env_j):
+    """The JAX env's sampler, advance and observation, each jitted once
+    per env (a jit of a fresh bound method or lambda traces and compiles
+    anew at every call)."""
+    spec = env_j.statics.sampler
+    return (jax.jit(lambda k: sample_scenario_retry(k, spec)),
+            jax.jit(env_j.advance_fn), jax.jit(env_j._observe))
+
+
 def _jax_sample(env_j, key):
     with jax.enable_x64(False):
         k_sample, _ = jax.random.split(key)
-        spec = env_j.statics.sampler
-        sc = jax.jit(lambda k: sample_scenario_retry(k, spec))(k_sample)
+        sc = _jax_programs(env_j)[0](k_sample)
     return ScenarioSample(*(torch.as_tensor(np.array(x)) for x in sc))
+
+
+def _jax_step(env_j, state_j, acts):
+    """The JAX step as its two parts, each from one jitted program: the
+    state after the crowd and robot dynamics, its observation, and the
+    observed state (the step's next state)."""
+    _, advance, observe = _jax_programs(env_j)
+    with jax.enable_x64(False):
+        adv_j, _, _ = advance(state_j, jax.numpy.asarray(acts))
+        state_j, obs_j = observe(adv_j, env_j.sensor_tables)
+    return adv_j, obs_j, state_j
 
 
 def _jax_advance_observe(env_j, state_j, acts):
     """The JAX state after the crowd and robot dynamics, and its
     observation, each from one jitted program."""
-    with jax.enable_x64(False):
-        adv_j, _, _ = jax.jit(env_j.advance_fn)(state_j,
-                                                jax.numpy.asarray(acts))
-        _, obs_j = jax.jit(env_j._observe)(adv_j, env_j.sensor_tables)
-    return adv_j, obs_j
+    return _jax_step(env_j, state_j, acts)[:2]
 
 
 def _assert_ped_obs_exact(obs_t, obs_j):

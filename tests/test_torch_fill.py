@@ -53,6 +53,40 @@ def test_fill_twin_matches_pallas_kernel(rng, statics, trial):
     assert got.any() and not got[:, ps_t.n_fill_slots:].any()
 
 
+@pytest.mark.parametrize("scenes", [1, 2])
+def test_fill_twin_with_rids_matches_pallas_kernel(rng, statics, scenes):
+    """Explicit in-scene ids, as a sensor group passes them: robots 0, 2
+    and 4 of each scene's five, ids 1, 3 and 5 (group-local positions would
+    give 1, 2 and 3, and robot 2 would then exclude robot 1's cells), each
+    scene read by its robots; against the Pallas fill in interpret mode
+    (vmapped over scenes) and the gather fill, both with the same rids."""
+    ps_j, ps_t, t = statics
+    packs, poses = zip(*(_scene(rng) for _ in range(scenes)))
+    packed, poses = np.stack(packs), np.stack(poses)[:, ::2]   # [S, 3, 3]
+    rids = np.asarray([1, 3, 5], np.int32)
+    with jax.enable_x64(False):
+        want = np.asarray(jax.jit(jax.vmap(
+            lambda pm, p: fill_sorted_pallas(ps_j, pm, RES, p,
+                                             rids=jnp.asarray(rids),
+                                             interpret=True)))(
+            jnp.asarray(packed), jnp.asarray(poses)))
+        gather = np.asarray(jax.jit(jax.vmap(
+            lambda pm, p: jpolar.fill_sorted(ps_j, pm, RES, p,
+                                             rids=jnp.asarray(rids))))(
+            jnp.asarray(packed), jnp.asarray(poses)))
+    got = polar.fill_sorted(
+        ps_t, t, torch.as_tensor(packed),
+        torch.as_tensor(poses.reshape(-1, 3)), RES,
+        torch.as_tensor(np.tile(rids, scenes))).numpy()
+    np.testing.assert_array_equal(got, want.reshape(got.shape))
+    np.testing.assert_array_equal(
+        got, (gather & ps_j.gates_sorted).reshape(got.shape))
+    default = polar.fill_sorted(ps_t, t, torch.as_tensor(packed),
+                                torch.as_tensor(poses.reshape(-1, 3)),
+                                RES).numpy()
+    assert (default != got).any()
+
+
 def test_fill_twin_close_to_f64_gather(rng, statics):
     """x64 CPU reference vs the f32 fill: only boundary-rounding slips, the
     JAX package's own bound (tests/test_pallas_fill.py)."""

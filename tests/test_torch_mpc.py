@@ -117,15 +117,16 @@ def test_batched_mppi_pooled_edt():
             jnp.zeros((0,)), cfg_j, jcost.CostWeights(), 0.4, False,
             robot_traj=jnp.asarray(robot_traj),
             robot_r=jnp.asarray(robot_r)))()
-    wc_t = cost.WorldCost(edt=torch.as_tensor(edt), resolution=res,
-                          obs_aabb=torch.as_tensor(aabb),
-                          obs_valid=torch.ones((1,), dtype=torch.bool),
-                          robot_radius=0.17)
+    wc_t = cost.WorldCost(edt=torch.as_tensor(edt)[None], resolution=res,
+                          obs_aabb=torch.as_tensor(aabb)[None],
+                          obs_valid=torch.ones((1, 1), dtype=torch.bool),
+                          robot_radius=0.17,
+                          scene=torch.zeros(n, dtype=torch.int64))
     lim_t = LimiterParams.from_config(SpeedLimiterConfig())
     t = torch.as_tensor
     got = mppi.batched_mppi(
         t(noise), t(nominal), t(poses), t(vw0), t(vw1), t(goals), wc_t,
-        lim_t, lim_t, torch.zeros((H, 0, 2)), torch.zeros((0,)), cfg_t,
+        lim_t, lim_t, torch.zeros((1, H, 0, 2)), torch.zeros((0,)), cfg_t,
         cost.CostWeights(), 0.4, False, robot_traj=t(robot_traj),
         robot_r=t(robot_r))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),

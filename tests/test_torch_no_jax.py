@@ -1,7 +1,9 @@
 """The torch port imports and runs with JAX, the JAX package, OpenCV, PIL
 and yaml all absent — the installation of the machine with the GPU: one
 MPC act and env step without pedestrians, one with the SFM crowd, and one
-with the ERVO crowd planned with the 'orca' head."""
+with the ERVO crowd planned with the 'orca' head; and a scene batch
+(``parallel``) with sensor groups, fast mode or no lasers, planned by the
+scene-batched act."""
 
 import json
 import os
@@ -40,16 +42,36 @@ SCRIPT = textwrap.dedent("""
     for x in (obs.lasers, obs.ped_vector_states, obs.ped_maps, costs,
               state.peds.pos):
         assert bool(torch.isfinite(x).all())
+    if len(sys.argv) > 3:
+        # a scene batch: parallel/, env/nav_env.py's flat passes,
+        # ops/polar.py's and ops/raster.py's scene forms, the scene act
+        from img_env_tpu_torch import BatchedNavEnv
+        benv = BatchedNavEnv(cfg, "cpu")
+        ctl = MpcController(benv.core, MppiConfig(horizon=4, samples=16),
+                            ped_prediction=sys.argv[2])
+        s = int(sys.argv[3])
+        states, obs = benv.reset(s)
+        actions, _, costs = ctl.act_scenes(states, ctl.init_scenes_state(s))
+        states, obs, reward, done, info = benv.step(states, actions)
+        assert obs.sensor_maps.shape == (s, n, 48, 48)
+        assert reward.shape == (s, n)
+        assert bool(torch.isfinite(costs).all())
+        leaked = [m for m in sys.modules if sys.modules[m] is not None
+                  and m.split(".")[0] in BLOCKED]
+        assert not leaked, leaked
     print("port-ok")
 """)
 
 
-def _run(cfg_dict, head="cv"):
+def _run(cfg_dict, head="cv", scenes=None):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"      # one torch thread, as in this process
+    extra = [] if scenes is None else [str(scenes)]
     proc = subprocess.run([sys.executable, "-c", SCRIPT,
-                           json.dumps(cfg_dict), head], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+                           json.dumps(cfg_dict), head, *extra], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "port-ok" in proc.stdout
 
@@ -66,3 +88,17 @@ def test_port_crowd_step_without_jax_cv2_pil_yaml():
 
 def test_port_ervo_crowd_step_without_jax_cv2_pil_yaml():
     _run(orca_cfg_dict("ervoscene"), head="orca")
+
+
+def test_port_scene_batch_without_jax_cv2_pil_yaml():
+    """Two scenes, fast mode, two sensor placements, SFM peds."""
+    d = ped_cfg_dict(n_rob=3)
+    d.update(sensor_mode="fast", fast_sensor_scale=2)
+    d["robot"]["sensor_cfgs"] = [[0.15, 0.0], [-0.1, 0.08], [0.15, 0.0]]
+    _run(d, scenes=2)
+
+
+def test_port_scene_batch_without_lasers_or_jax():
+    d = small_cfg_dict()
+    d["use_laser"] = False
+    _run(d, head="cv", scenes=3)

@@ -40,6 +40,26 @@ def test_robot_maps_twin_matches_pallas_kernel(rng, trial):
     assert cnt.max() >= 2                      # the scene forces overlaps
 
 
+def test_robot_maps_twin_scene_axis_matches_vmapped_pallas_kernel(rng):
+    """K1's twin over a scene axis (S=3 scenes of the same 6 robots at
+    other poses, as the batch env rasters them in one launch) against the
+    Pallas kernel vmapped over scenes, as the JAX package's
+    ``_observe_multi`` runs it; each scene's ids are in-scene ids."""
+    pts, msk, _ = _scene(rng)
+    poses = np.stack([_scene(rng)[2] for _ in range(3)])       # [3, 6, 3]
+    with jax.enable_x64(False):
+        cells = jax.jit(jax.vmap(lambda p: jraster.world_to_cell(
+            jraster.transform_points(p, jnp.asarray(pts)), RES)))(
+                jnp.asarray(poses, jnp.float32))
+        want_cnt, want_id = jax.vmap(lambda c: robot_maps_pallas(
+            c, jnp.asarray(msk), h=HW[0], w=HW[1], interpret=True))(cells)
+    cnt, id_sum = raster.robot_maps(_t(cells), _t(msk), *HW)
+    assert cnt.shape == (3,) + tuple(HW)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt))
+    np.testing.assert_array_equal(id_sum.numpy(), np.asarray(want_id))
+    assert not torch.equal(cnt[0], cnt[1])
+
+
 def _scene_arrays(static, obs, peds, robots):
     """tests/test_raster._layers_from_scene's inputs as numpy arrays."""
     obs_poses = np.stack([p for p, _ in obs])

@@ -169,8 +169,13 @@ def _jax_draws(key, spec):
 @pytest.mark.parametrize("seed", range(4))
 def test_circle_and_view_pose_types_with_jax_draws(seed):
     """The port's placement fed the JAX sampler's own draws gives the JAX
-    layout: every pose within float32 sin/cos rounding (torch's and XLA's
-    differ in the last bit), the picks, go-back flags and ok exactly."""
+    layout bit for bit (glibc's sin/cos, XLA's contractions and its folding
+    of angle + 3.14 into the uniform's product), the picks, go-back flags
+    and ok exactly.  The one exception is the x, y of a Gaussian-noised
+    circle pose (range_circle, range_circle_fix: robots 0 and 1, and the
+    ped's start), held within one float32 ulp: inside the jitted sampler
+    XLA folds the noise's scale into its last add, so the scaled draw
+    handed to the port is an ulp from the value the JAX sum used."""
     d = _pose_cfg_dict()
     spec_j = JaxSpec.from_config(JaxEnvConfig.from_dict(d))
     spec_t = SamplerSpec.from_config(EnvConfig.from_dict(d))
@@ -179,10 +184,14 @@ def test_circle_and_view_pose_types_with_jax_draws(seed):
         want = jax.jit(lambda k: jax_sample_once(k, spec_j))(key)
     got = place(spec_t, _jax_draws(key, spec_j))
     assert bool(got.ok) == bool(want.ok)
+    noisy = {"init_poses": [0, 1, 3], "target_poses": [0, 1]}
     for f in ("init_poses", "target_poses", "obs_pose", "obs_circle_r"):
-        np.testing.assert_allclose(getattr(got, f).numpy(),
-                                   np.asarray(getattr(want, f)), rtol=0,
-                                   atol=2e-5, err_msg=f)
+        g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        exact = np.ones(g.shape, bool)
+        if f in noisy:
+            exact[noisy[f], :2] = False
+        np.testing.assert_array_equal(g[exact], w[exact], err_msg=f)
+        np.testing.assert_array_max_ulp(g[~exact], w[~exact], maxulp=1)
     np.testing.assert_array_equal(got.go_back.numpy(),
                                   np.asarray(want.go_back))
     # the circle_fix goal is the exact opposite of the start

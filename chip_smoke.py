@@ -63,7 +63,21 @@ beep_r 1.0 and ped_ca_p 0.8 as in img_env_tpu/configs/ervo_crowd.yaml):
      steps with the groups (K2 and K3 twice a step); device operations
      and busy ms per step under torch.profiler; then small scene batches
      card vs CPU: a 4-scene crowd, 3 scenes with sensor groups, 2 fast
-     scenes and 2 without lasers.
+     scenes and 2 without lasers;
+ 12. the evaluation path: the stage-5 curriculum policy
+     (img_env_tpu_torch/artifacts/stage5_policy.npz, load_policy_npz) on
+     the card against the same module on the CPU at a reset of the
+     baseline_10obs_5ped config, timed; ``evaluate_batched`` of that
+     policy over the 50 episodes of docs/artifacts/baseline_curriculum/
+     bank50.npz at full width (50 scenes of one robot, 10 obstacles and 5
+     SFM leg peds in room_10, 400x400 views, 960 beams; at most 101
+     steps), its summary, ms per control step, the policy's share, device
+     operations, busy ms and idle share per step, the crowd's share
+     (50 SFM scene steps), K1-K4 once a step and K5 never, the arrive
+     rate at least ARRIVE_FLOOR; K1-K4 against their twins at these
+     shapes; then the small evaluator config card vs CPU: one facade
+     episode (make_env, its wrapper stack) and a 3-episode evaluation
+     equal, the recorder's poses too.
 
 Each path's launch counts are set to 0 just before it and read just after
 (per control step: the reset's launches left out).  Any failed phase
@@ -79,6 +93,7 @@ import sys
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 BENCH200 = {
@@ -262,6 +277,47 @@ ERVO_ITERS = 12     # timed ERVO steps
 BLOCK_STEPS = 3     # block-painter steps
 BATCH_ITERS = 10    # timed steps of the multi-scene and fast paths
 GROUP_STEPS = 3     # sensor-group steps
+
+# the evaluation path (phase 12): the stage-5 curriculum policy and the env
+# config it was trained with (img_env_tpu/configs/baseline_10obs_5ped.yaml,
+# exported by tools/export_policy_npz.py), over the 50-episode bank that the
+# README's result used, every episode a scene of one robot
+POLICY_NPZ = "img_env_tpu_torch/artifacts/stage5_policy.npz"
+POLICY_ENV = "img_env_tpu_torch/artifacts/stage5_policy_env.json"
+BANK50 = "docs/artifacts/baseline_curriculum/bank50.npz"
+EVAL_EPISODES = 50
+# README: 0.86 arrive over these 50 episodes; the port's episodes are its
+# own (the bank's keys seed torch generators), and a binomial spread is
+# ~0.05, so 0.6 fails only a broken observation pipeline or weight import
+ARRIVE_FLOOR = 0.6
+# the policy forward, card vs CPU (float32, TF32 off): the convolutions
+# and matmuls sum in other orders
+POLICY_TOL = 1e-4
+# tests/test_eval_parity.py's config with 3 m views at 0.05 m and
+# time_max 10 (tests/test_torch_eval.py), without peds: the card's own
+# trajectories equal the CPU's (the SFM's exp and atan2 differ in ulps
+# between the devices, PED_TOL)
+SMALL_EVAL = {
+    "env_name": "eval_parity", "control_hz": 0.4, "time_max": 10,
+    "state_dim": 3, "act_dim": 2, "discrete_action": False,
+    "continuous_actions": [[0, 0.6], [-0.9, 0.9], [-0.6, 0.6]],
+    "max_ped": 2, "range_total": 32,
+    "wrapper": ["VelActionWrapper", "TimeLimitWrapper",
+                "SensorsPaperRewardWrapper", "InfoLogWrapper",
+                "MultiRobotCleanWrapper", "StateBatchWrapper",
+                "ObsLaserStateTmp"],
+    "robot": {"total": 2, "shape": ["circle"], "size": [[0.0, 0.0, 0.17]],
+              "begin_poses_type": ["range"],
+              "begin_poses": [[1.5, 8.5, 1.5, 8.5]],
+              "target_poses_type": ["range"],
+              "target_poses": [[1.5, 8.5, 1.5, 8.5]]},
+    "object": {"total": 2, "shape": ["circle"], "size_range": [[0.15, 0.25]],
+               "poses_type": ["range"], "poses": [[2.0, 8.0, 2.0, 8.0]]},
+    "ped_sim": {"total": 0, "type": ""},
+    "global_map": {"map_file": "room_10.png", "resolution": 0.1},
+    "view_map": {"resolution": 0.05, "width": 3.0, "height": 3.0},
+    "target_min_dist": 2.0,
+}
 
 
 def log(msg: str) -> None:
@@ -1239,6 +1295,265 @@ def small_batch_reference(cfg_dict, scenes: int, device):
     return worst
 
 
+def load_stage5(device):
+    """The stage-5 policy on ``device`` and its env config."""
+    from img_env_tpu_torch import EnvConfig, load_policy_npz
+
+    with open(POLICY_ENV, encoding="utf-8") as f:
+        cfg = EnvConfig.from_dict(json.load(f))
+    return load_policy_npz(POLICY_NPZ, cfg, device), cfg
+
+
+def policy_inputs(cfg, obs):
+    """The policy's inputs from a batch's Observation ([S, N, ...])."""
+    flat = lambda x: x.reshape((-1,) + x.shape[2:])
+    return (flat(obs.sensor_maps)[:, None], flat(obs.vector_states),
+            flat(obs.ped_maps), flat(obs.ped_vector_states))
+
+
+def check_policy(policy, cfg, obs):
+    """(a) The forward on the card against the same module on the CPU, on
+    the same observations; returns (worst error, card ms, CPU ms)."""
+    import copy
+
+    inputs = policy_inputs(cfg, obs)
+    cpu = copy.deepcopy(policy).cpu()
+    with torch.no_grad():
+        got = policy(*inputs)
+        want = cpu(*(x.cpu() for x in inputs))
+    worst = 0.0
+    for name, g, w in zip(("mean", "log_std", "value"), got, want):
+        g, w = g.detach().cpu(), w.detach()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"policy {name}: non-finite on the card")
+        err = float((g - w).abs().max())
+        worst = max(worst, err)
+        if not torch.allclose(g, w, rtol=POLICY_TOL, atol=POLICY_TOL):
+            raise AssertionError(f"policy {name}: card vs CPU {err}")
+
+    def forward():
+        with torch.no_grad():
+            policy(*inputs)
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(3):
+            cpu(*(x.cpu() for x in inputs))
+    cpu_ms = (time.perf_counter() - t0) / 3 * 1e3
+    # 5 calls: their host enqueue (~2 ms a call) stays under the sleep
+    return worst, cuda_ms(forward, 5), cpu_ms
+
+
+def selfcheck_eval(benv, states):
+    """K1-K4 against their twins at the evaluation path's shapes (S scenes
+    of one robot: K1 over S maps, K2 with one robot a scene, K3 on its
+    thresholds, K4 over the S robots and their scenes' peds); returns
+    {kernel: ms}."""
+    from img_env_tpu_torch.env import observe
+    from img_env_tpu_torch.ops import pedmap, polar, raster
+
+    core = benv.core
+    t, res = core.tables, core.statics.resolution
+    h, w = states.obs_map.shape[-2:]
+    pose = states.robots.pose
+    cells = raster.world_to_cell(raster.transform_points(pose, t.robot_points),
+                                 res)
+    got = raster.robot_maps_kernel(cells, t.robot_mask, h, w)
+    mism = int((got != raster.robot_maps_twin(cells, t.robot_mask, h,
+                                              w)).sum())
+    log(f"# K1 raster, eval bank50: {mism} mismatched cells of "
+        f"{got.numel()} ({got.shape[0]} scenes)")
+    if mism:
+        raise AssertionError("K1 raster kernel != twin (eval bank50)")
+    ms = {"raster": cuda_ms(lambda: raster.robot_maps_kernel(
+        cells, t.robot_mask, h, w), 50)}
+    packed = core._layers(states).packed
+    poses = pose.reshape(-1, 3)
+    args = fill_args(core, packed, poses, pose.shape[1])
+    occ = check_fill("eval bank50", args)
+    ms["fill"] = cuda_ms(lambda: polar.fill_sorted_kernel(*args), 20)
+    s_hit, s_tail = thresholds(core, occ)
+    check_paint("eval bank50", core, s_hit, s_tail)
+    from img_env_tpu_torch.ops import painter
+
+    pst, pt = core.statics.painter, core.tables.painter
+    ms["paint"] = cuda_ms(lambda: painter.paint_slots_kernel(
+        pt, s_hit, s_tail, pst.n_slots), 20)
+    m = states.peds.pos.shape[1]
+    base = [x.reshape(-1, m) for x in observe.peds_in_base(
+        pose, states.peds.pos, states.peds.vel)]
+    hs, r_img = int(core.cfg.ped_image_size[0]), float(core.cfg.ped_image_r)
+    got = pedmap.ped_map_kernel(*base, 6.0 / hs, r_img, hs)
+    want = pedmap.ped_map_twin(*base, 6.0 / hs, r_img, hs)
+    mism = int((got != want).sum())
+    log(f"# K4 ped map, eval bank50 ({base[0].shape[0]} robots x {m} "
+        f"peds): {mism} mismatched of {got.numel()}, "
+        f"{int((want[:, 0] > 0).sum())} occupied pixels")
+    if mism:
+        raise AssertionError("K4 ped-map kernel != twin (eval bank50)")
+    ms["pedmap"] = cuda_ms(lambda: pedmap.ped_map_kernel(
+        *base, 6.0 / hs, r_img, hs), 50)
+    return ms
+
+
+class CountingPolicy:
+    """A policy_fn that counts its calls (one per control step), reads the
+    launch counts at its first call (what the reset launched) and sums its
+    own host time, synchronised (the evaluator syncs every step anyway)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = 0
+        self.at_first = None
+        self.t_first = 0.0
+        self.seconds = 0.0
+
+    def __call__(self, generator, obs):
+        from img_env_tpu_torch.ops import kernels
+
+        if self.calls == 0:
+            torch.cuda.synchronize()
+            self.at_first = dict(kernels.LAUNCHES)
+            self.t_first = time.perf_counter()
+        self.calls += 1
+        t0 = time.perf_counter()
+        out = self.fn(generator, obs)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def eval_path(policy, cfg):
+    """(b) The trusted evaluator at full width: ``evaluate_batched`` of the
+    stage-5 policy over the bank's 50 episodes, one scene each, on the
+    card, the launch counts set to 0 just before and read just after.
+    Then, from the reset of the same bank, profiled steps of the same loop
+    (policy, step, the evaluator's host reads; host syncs made errors in
+    the policy and the step), the crowd alone, and K1-K4 against their
+    twins on the stepped states.  Returns a dict of what it measured."""
+    from img_env_tpu_torch import BatchedNavEnv, ScenarioBank, evaluate_batched
+    from img_env_tpu_torch import mean_action_fn
+    from img_env_tpu_torch.core.state import map_tree
+    from img_env_tpu_torch.ops import kernels
+
+    bank = ScenarioBank.load(BANK50)
+    fn = CountingPolicy(mean_action_fn(policy, cfg))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, dones = evaluate_batched(cfg, fn, EVAL_EPISODES, bank=bank)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    steps = fn.calls
+    per_step = {k: (launches[k] - fn.at_first[k]) / steps for k in launches}
+    loop_s = t_end - fn.t_first
+    out = dict(summary=summary, dones=dones, steps=steps,
+               wall_s=t_end - t0, ms_step=loop_s / steps * 1e3,
+               policy_share=fn.seconds / loop_s, launches=launches,
+               at_reset=fn.at_first, per_step=per_step)
+    if dones.shape != (EVAL_EPISODES, cfg.robot.total):
+        raise AssertionError(f"eval: dones_info shape {dones.shape}")
+    if not set(np.unique(dones).tolist()) <= {1, 2, 3, 5, 10}:
+        raise AssertionError(f"eval: labels {np.unique(dones)}")
+    for k in ("raster", "fill", "paint", "pedmap"):
+        if per_step[k] != 1.0:
+            raise AssertionError(f"eval: {k} launched {per_step[k]} times "
+                                 f"a step, not once")
+    if launches["paint_block"]:
+        raise AssertionError("eval: K5 launched")
+
+    benv = BatchedNavEnv(cfg)
+    spec = benv.core.statics.sampler
+    states, obs = benv.reset([bank.sample(e, spec, benv.device)
+                              for e in range(EVAL_EPISODES)])
+    out["policy_check"] = check_policy(policy, cfg, obs)
+    policy_fn = mean_action_fn(policy, cfg)
+
+    def control_step():
+        nonlocal states, obs
+        torch.cuda.set_sync_debug_mode("error")
+        a = policy_fn(None, obs)
+        a = torch.cat([a, a.new_zeros(a.shape[:-1] + (1,))], -1)
+        states, obs, *_ = benv.step(states, a)
+        torch.cuda.set_sync_debug_mode(0)
+        for x in (obs.is_collisions, obs.is_arrives, obs.ped_min_dists):
+            x.cpu()
+
+    for _ in range(3):
+        control_step()
+    out["ops"], out["busy_ms"] = device_profile(control_step)
+    out["idle_share"] = 1.0 - out["busy_ms"] / out["ms_step"]
+    core = benv.core
+    n = cfg.robot.total
+
+    def crowd_only():
+        for k in range(EVAL_EPISODES):
+            core._crowd_step(map_tree(lambda x, k=k: x[k], states),
+                             None, None)
+
+    out["crowd_ops"], out["crowd_busy_ms"] = device_profile(crowd_only)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        crowd_only()
+    torch.cuda.synchronize()
+    out["crowd_host_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    out["policy_ops"], out["policy_busy_ms"] = device_profile(
+        lambda: policy_fn(None, obs))
+    if n != 1:
+        raise AssertionError("eval: the stage-5 config has one robot")
+    out["kernel_ms"] = selfcheck_eval(benv, states)
+    return out
+
+
+def small_eval_reference(device):
+    """(c) The small evaluator config on the card vs the CPU port, with the
+    exact P-controller (multiplies and clips): ``make_env`` with its
+    wrapper stack for one episode (one bank episode on both), then
+    ``evaluate_batched`` of 3 episodes with ``record=True``.  Filtered
+    observations, rewards, dones, ``dones_info``, ``all_down``, the
+    summary (its wall time aside) and the recorder's poses must be equal.
+    Returns the steps the facade ran."""
+    from img_env_tpu_torch import EnvConfig, evaluate_batched, make_env
+
+    def p_control(generator, obs):
+        vec = obs.vector_states
+        return torch.stack([torch.clamp(0.8 * vec[..., 0], 0.0, 0.6),
+                            torch.clamp(2.0 * vec[..., 1], -0.9, 0.9)], -1)
+
+    d = dict(SMALL_EVAL, cfg_type="bag", init_pose_bag_episodes=1)
+    env_c, env_g = make_env(d, device="cpu"), make_env(d, device=device)
+    obs_c, obs_g = env_c.reset(carry=False), env_g.reset(carry=False)
+    steps = 0
+    for _ in range(SMALL_EVAL["time_max"] + 1):
+        for a, b in zip(obs_c, obs_g):
+            if not np.array_equal(a, b):
+                raise AssertionError("small eval: facade observations "
+                                     "differ")
+        act = p_control(None, env_c.last_raw_obs).numpy()
+        obs_c, r_c, d_c, i_c = env_c.step(act)
+        obs_g, r_g, d_g, i_g = env_g.step(act)
+        steps += 1
+        for name, a, b in (("reward", r_c, r_g), ("done", d_c, d_g),
+                           *((k, i_c[k], i_g[k]) for k in i_c)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"small eval: facade {name} differ")
+        if bool(i_c["all_down"]):
+            break
+    cfg = EnvConfig.from_dict(SMALL_EVAL)
+    runs = [evaluate_batched(cfg, p_control, 3, record=True, device=dev)
+            for dev in ("cpu", device)]
+    (s_c, di_c, rec_c), (s_g, di_g, rec_g) = runs
+    s_c.pop("wall_s"), s_g.pop("wall_s")
+    if not np.array_equal(di_c, di_g) or s_c != s_g:
+        raise AssertionError(f"small eval: evaluator {s_c} vs {s_g}")
+    for ec, eg in zip(rec_c.episodes, rec_g.episodes):
+        for k in ("robot_poses", "robot_vws"):
+            if not np.array_equal(ec.arrays()[k], eg.arrays()[k]):
+                raise AssertionError(f"small eval: recorder {k} differ")
+    return steps, s_g
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1463,6 +1778,35 @@ def main() -> None:
         log(f"# small {name} batch ({scenes} scenes) card vs CPU: worst "
             f"{worst}")
 
+    # ---- the evaluation path: the stage-5 policy over bank50 ----
+    policy, eval_cfg = load_stage5("cuda")
+    ev = eval_path(policy, eval_cfg)
+    summ = ev["summary"]
+    err, card_ms, cpu_ms = ev["policy_check"]
+    log(f"# eval bank50 summary: {json.dumps(summ)}")
+    log(f"# eval bank50: {ev['wall_s']:.3f} s wall for the reset and "
+        f"{ev['steps']} control steps, {ev['ms_step']:.3f} ms per control "
+        f"step, policy share {ev['policy_share']:.4f}; {ev['ops']:.1f} "
+        f"device operations and {ev['busy_ms']:.4f} ms device busy per step, "
+        f"idle share {ev['idle_share']:.4f}; the crowd alone (50 SFM scene "
+        f"steps) {ev['crowd_ops']:.1f} operations, {ev['crowd_busy_ms']:.4f} "
+        f"ms busy, {ev['crowd_host_ms']:.3f} ms host per step; the policy "
+        f"forward {ev['policy_ops']:.1f} operations, "
+        f"{ev['policy_busy_ms']:.4f} ms device busy, {card_ms:.4f} ms a call "
+        f"on the card ({cpu_ms:.3f} ms on the CPU), card vs CPU max error "
+        f"{err:.3g} (tolerance {POLICY_TOL}); launches per step "
+        f"{ev['per_step']}, at the reset {ev['at_reset']}; kernel ms at "
+        f"these shapes {ev['kernel_ms']}")
+    if summ["arrive_rate"] < ARRIVE_FLOOR:
+        raise AssertionError(f"eval bank50: arrive rate "
+                             f"{summ['arrive_rate']} < {ARRIVE_FLOOR}")
+    steps_small, summ_small = small_eval_reference("cuda")
+    log(f"# small evaluator config card vs CPU: facade episode of "
+        f"{steps_small} steps and a 3-episode evaluation equal; "
+        f"{json.dumps(summ_small)}")
+    for name, ms in ev["kernel_ms"].items():
+        batch_ms[name]["eval bank50"] = ms
+
     src = "img_env_tpu_torch/csrc/"
     meta = {"raster": ("raster.cu", "img_env_tpu/ops/pallas_raster.py:105",
                        launches),
@@ -1478,7 +1822,8 @@ def main() -> None:
     per_step = {"bench200": run.per_step, "bench200ped": run_p.per_step,
                 "bench200ervo": run_e.per_step,
                 "bench200 paint_mode=block": per_step_b,
-                **{k: r.per_step for k, r in batch_runs.items()}}
+                **{k: r.per_step for k, r in batch_runs.items()},
+                "eval bank50": ev["per_step"]}
     rows = [{"name": name, "route": "cuda", "source": src + cu,
              "replaces": replaces, "launches": runs[name],
              "launches_per_step": {p: c[name] for p, c in per_step.items()},

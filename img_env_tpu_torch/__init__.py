@@ -7,10 +7,15 @@ kernel: kernels compile on first use from a CUDA tensor.
 """
 
 from img_env_tpu_torch.config import EnvConfig
+from img_env_tpu_torch.env.gymapi import make_env
 from img_env_tpu_torch.env.nav_env import NavEnv
+from img_env_tpu_torch.eval.batched_eval import evaluate_batched
+from img_env_tpu_torch.eval.recorder import ScenarioBank
+from img_env_tpu_torch.models.policy import load_policy_npz, mean_action_fn
 from img_env_tpu_torch.mpc.controller import MpcController
 from img_env_tpu_torch.mpc.mppi import MppiConfig
 from img_env_tpu_torch.parallel import BatchedNavEnv
 
 __all__ = ["EnvConfig", "NavEnv", "BatchedNavEnv", "MpcController",
-           "MppiConfig"]
+           "MppiConfig", "make_env", "evaluate_batched", "ScenarioBank",
+           "load_policy_npz", "mean_action_fn"]

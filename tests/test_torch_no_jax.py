@@ -3,7 +3,9 @@ and yaml all absent — the installation of the machine with the GPU: one
 MPC act and env step without pedestrians, one with the SFM crowd, and one
 with the ERVO crowd planned with the 'orca' head; and a scene batch
 (``parallel``) with sensor groups, fast mode or no lasers, planned by the
-scene-batched act."""
+scene-batched act; and the serving path: ``make_env`` on a dict, one
+``evaluate_batched`` episode and the committed stage-5 policy through
+``load_policy_npz``."""
 
 import json
 import os
@@ -63,12 +65,48 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def _run(cfg_dict, head="cv", scenes=None):
+SERVE_SCRIPT = textwrap.dedent("""
+    import json
+    import sys
+    BLOCKED = ("jax", "jaxlib", "img_env_tpu", "cv2", "PIL", "yaml",
+               "flax", "orbax")
+    for name in BLOCKED:
+        sys.modules[name] = None          # any import of them now fails
+
+    import torch
+    from img_env_tpu_torch import EnvConfig
+    from img_env_tpu_torch.env.gymapi import make_env
+    from img_env_tpu_torch.eval import evaluate_batched
+    from img_env_tpu_torch.models import load_policy_npz, mean_action_fn
+
+    d = json.loads(sys.argv[1])
+    env = make_env(d, device="cpu")
+    obs = env.reset()
+    obs, reward, done, info = env.step([[0.3, 0.1]] * env.robot_total)
+    assert reward.shape == (env.robot_total,) and "dones_info" in info
+    with open("img_env_tpu_torch/artifacts/stage5_policy_env.json") as f:
+        raw = json.load(f)
+    raw["view_map"] = d["view_map"]
+    raw["range_total"] = d["range_total"]
+    cfg = EnvConfig.from_dict(raw)
+    policy = load_policy_npz("img_env_tpu_torch/artifacts/stage5_policy.npz",
+                             cfg, "cpu")
+    summary, dones = evaluate_batched(cfg, mean_action_fn(policy, cfg), 1,
+                                      max_steps=2, device="cpu")
+    assert dones.shape == (1, 1) and summary["episodes"] == 1
+    leaked = [m for m in sys.modules if sys.modules[m] is not None
+              and m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("port-ok")
+""")
+
+
+def _run(cfg_dict, head="cv", scenes=None, script=SCRIPT):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"      # one torch thread, as in this process
     extra = [] if scenes is None else [str(scenes)]
-    proc = subprocess.run([sys.executable, "-c", SCRIPT,
+    proc = subprocess.run([sys.executable, "-c", script,
                            json.dumps(cfg_dict), head, *extra], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
@@ -102,3 +140,14 @@ def test_port_scene_batch_without_lasers_or_jax():
     d = small_cfg_dict()
     d["use_laser"] = False
     _run(d, head="cv", scenes=3)
+
+
+def test_serving_path_without_jax_cv2_pil_yaml():
+    """The facade on a dict, the trusted evaluator and the committed
+    stage-5 policy (views cut to the small config's)."""
+    d = ped_cfg_dict()
+    d["wrapper"] = ["VelActionWrapper", "TimeLimitWrapper",
+                    "SensorsPaperRewardWrapper", "InfoLogWrapper",
+                    "MultiRobotCleanWrapper", "StateBatchWrapper",
+                    "ObsLaserStateTmp", "NeverStopWrapper"]
+    _run(d, script=SERVE_SCRIPT)

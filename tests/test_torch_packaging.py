@@ -75,3 +75,21 @@ def test_navenv_defaults_to_the_card():
         pytest.skip("a CUDA device is present: the default builds there")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         NavEnv(EnvConfig.from_dict(small_cfg_dict()))
+
+
+def test_policy_artifacts_are_package_data():
+    """The committed stage-5 policy (npz and its env json) ships with the
+    package, and git does not ignore it."""
+    import subprocess
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)
+    globs = data["tool"]["setuptools"]["package-data"]["img_env_tpu_torch"]
+    names = sorted(os.listdir(os.path.join(PKG, "artifacts")))
+    assert names == ["stage5_policy.npz", "stage5_policy_env.json"]
+    for name in names:
+        rel = f"artifacts/{name}"
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
+        ignored = subprocess.run(
+            ["git", "check-ignore", "-q", os.path.join(PKG, rel)], cwd=REPO)
+        assert ignored.returncode == 1, rel

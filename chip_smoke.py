@@ -319,6 +319,53 @@ SMALL_EVAL = {
     "target_min_dist": 2.0,
 }
 
+# the training path (phase 13): the stage-5 polish stage of
+# examples/train_curriculum.sh:44-48 (baseline_10obs_5ped, lr 3e-5,
+# reward-scale 0.02, ent-coef 0.0005, pi_log_std forced to -2.0) at the
+# curriculum's 32 scenes (:15), unroll 16, 2 epochs x 2 minibatches,
+# warm-started from the stage-5 policy, 3 updates through train/run.py
+TRAIN_UPDATES = 3
+TRAIN_ARGS = [POLICY_ENV, "--scenes", "32", "--unroll", "16", "--epochs",
+              "2", "--minibatches", "2", "--lr", "3e-5", "--reward-scale",
+              "0.02", "--ent-coef", "0.0005", "--force-sigma", "-2.0",
+              "--restore", POLICY_NPZ, "--updates", str(TRAIN_UPDATES),
+              "--seed", "0"]
+# docs/artifacts/baseline_curriculum/stage5.csv: each update's reward_mean
+# between 9.8 and 25.2 (1st-99th percentile over 3,000 updates); a broken
+# reward, policy or gradient sends it negative (stage 1's fresh policy
+# starts near -6)
+REWARD_FLOOR = 5.0
+# the learning demo of README.md:101-104 (img_env_tpu/configs/
+# easy_train.yaml as a dict: the card's machine has no PyYAML)
+EASY_TRAIN = {
+    "env_name": "easy_train",
+    "robot": {"total": 1, "begin_poses_type": ["range"],
+              "begin_poses": [[2.0, 8.0, 2.0, 8.0]],
+              "target_poses_type": ["range"],
+              "target_poses": [[2.0, 8.0, 2.0, 8.0]]},
+    "ped_sim": {"total": 0},
+    "global_map": {"map_file": "room_10.png", "resolution": 0.1},
+    "view_map": {"resolution": 0.1, "width": 3.0, "height": 3.0},
+    "range_total": 24, "image_size": [48, 48], "time_max": 40,
+}
+EASY_ARGS = ["--scenes", "16", "--unroll", "16", "--lr", "3e-4",
+             "--reward-scale", "0.02", "--sigma0", "-1.0", "--updates", "50",
+             "--seed", "0"]
+# one run's reward_mean swings by +-10 between updates and may climb to ~20
+# and fall back within 50 updates (the JAX package's runs dip too), so its
+# first-10 vs last-10 comparison fails by chance; the check averages
+# EASY_SEEDS runs
+EASY_SEEDS = (0, 1, 2)
+# the full-width gradient, card vs CPU: each leaf within GRAD_TOL of its
+# largest magnitude, plus 1e-8 for the attention's key bias, whose exact
+# gradient is 0 (float32 in other summation orders; TF32's 10-bit mantissa
+# errs by ~1e-3)
+GRAD_TOL = 1e-4
+GRAD_SAMPLES = 256
+# one small train step card vs CPU (clip + sgd 0.05): parameters within
+# STEP_TOL (they move by ~5e-3)
+STEP_TOL = 1e-5
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1344,11 +1391,11 @@ def check_policy(policy, cfg, obs):
     return worst, cuda_ms(forward, 5), cpu_ms
 
 
-def selfcheck_eval(benv, states):
-    """K1-K4 against their twins at the evaluation path's shapes (S scenes
-    of one robot: K1 over S maps, K2 with one robot a scene, K3 on its
-    thresholds, K4 over the S robots and their scenes' peds); returns
-    {kernel: ms}."""
+def selfcheck_eval(benv, states, name="eval bank50"):
+    """K1-K4 against their twins at the shapes of a path of S scenes of one
+    robot (the evaluation and training paths: K1 over S maps, K2 with one
+    robot a scene, K3 on its thresholds, K4 over the S robots and their
+    scenes' peds); returns {kernel: ms}."""
     from img_env_tpu_torch.env import observe
     from img_env_tpu_torch.ops import pedmap, polar, raster
 
@@ -1361,19 +1408,19 @@ def selfcheck_eval(benv, states):
     got = raster.robot_maps_kernel(cells, t.robot_mask, h, w)
     mism = int((got != raster.robot_maps_twin(cells, t.robot_mask, h,
                                               w)).sum())
-    log(f"# K1 raster, eval bank50: {mism} mismatched cells of "
+    log(f"# K1 raster, {name}: {mism} mismatched cells of "
         f"{got.numel()} ({got.shape[0]} scenes)")
     if mism:
-        raise AssertionError("K1 raster kernel != twin (eval bank50)")
+        raise AssertionError(f"K1 raster kernel != twin ({name})")
     ms = {"raster": cuda_ms(lambda: raster.robot_maps_kernel(
         cells, t.robot_mask, h, w), 50)}
     packed = core._layers(states).packed
     poses = pose.reshape(-1, 3)
     args = fill_args(core, packed, poses, pose.shape[1])
-    occ = check_fill("eval bank50", args)
+    occ = check_fill(name, args)
     ms["fill"] = cuda_ms(lambda: polar.fill_sorted_kernel(*args), 20)
     s_hit, s_tail = thresholds(core, occ)
-    check_paint("eval bank50", core, s_hit, s_tail)
+    check_paint(name, core, s_hit, s_tail)
     from img_env_tpu_torch.ops import painter
 
     pst, pt = core.statics.painter, core.tables.painter
@@ -1386,11 +1433,11 @@ def selfcheck_eval(benv, states):
     got = pedmap.ped_map_kernel(*base, 6.0 / hs, r_img, hs)
     want = pedmap.ped_map_twin(*base, 6.0 / hs, r_img, hs)
     mism = int((got != want).sum())
-    log(f"# K4 ped map, eval bank50 ({base[0].shape[0]} robots x {m} "
+    log(f"# K4 ped map, {name} ({base[0].shape[0]} robots x {m} "
         f"peds): {mism} mismatched of {got.numel()}, "
         f"{int((want[:, 0] > 0).sum())} occupied pixels")
     if mism:
-        raise AssertionError("K4 ped-map kernel != twin (eval bank50)")
+        raise AssertionError(f"K4 ped-map kernel != twin ({name})")
     ms["pedmap"] = cuda_ms(lambda: pedmap.ped_map_kernel(
         *base, 6.0 / hs, r_img, hs), 50)
     return ms
@@ -1554,6 +1601,386 @@ def small_eval_reference(device):
     return steps, s_g
 
 
+def to_device(sample, device):
+    return type(sample)(*(v.to(device) for v in sample))
+
+
+def small_train_reference(device):
+    """(a) One train step of a small crowd config (SMALL_PED, 2 scenes,
+    unroll 4, 2 epochs x 2 minibatches, clip 0.5 + sgd 0.05) on the card
+    and on the CPU from one fresh policy, one set of layouts and the same
+    injected draws (Gaussian noise, reset layouts, permutations); scene 0
+    starts 2 steps before time_max, so the autoreset redraws it.  Done
+    codes, the final collision and arrival codes, the step counts and the
+    scenes reset must be equal, the parameters within STEP_TOL.  Returns
+    (worst parameter error, how far they moved, scenes reset)."""
+    from img_env_tpu_torch import BatchedNavEnv, EnvConfig
+    from img_env_tpu_torch.models.policy import (CrowdNavPolicy, PolicyConfig,
+                                                 init_policy)
+    from img_env_tpu_torch.train import optim, ppo
+
+    cfg = EnvConfig.from_dict(SMALL_PED)
+    s, t, epochs = 2, 4, 2
+    pcfg = ppo.PpoConfig(unroll=t, epochs=epochs, minibatches=2,
+                         reward_scale=0.02)
+    gen = torch.Generator().manual_seed(0)
+    pol_cfg = PolicyConfig.from_env_config(cfg)
+    _, params0 = init_policy(gen, pol_cfg, "cpu")
+    env_c = BatchedNavEnv(cfg, "cpu")
+    samples = [env_c.core.sample_scenario() for _ in range(2 * s)]
+    b = s * cfg.robot.total
+    eps = torch.randn((t, b, cfg.act_dim), generator=gen)
+    perms = torch.stack([torch.randperm(t * b, generator=gen)
+                         for _ in range(epochs)])
+    out = {}
+    for dev in ("cpu", device):
+        env = env_c if dev == "cpu" else BatchedNavEnv(cfg, dev)
+        params = {k: v.to(dev) for k, v in params0.items()}
+        init_fn, step = ppo.make_train_step(
+            env, CrowdNavPolicy(pol_cfg).to(dev), pcfg,
+            tx=optim.chain(optim.clip_by_global_norm(0.5), optim.sgd(0.05)))
+        states, obs = env.reset([to_device(x, dev) for x in samples[:s]])
+        states = states._replace(step=torch.tensor(
+            [cfg.time_max - 2, 0], dtype=torch.int32, device=dev))
+        draws = ppo.Draws(eps.to(dev), [to_device(x, dev)
+                                        for x in samples[s:]], perms.to(dev))
+        traj = step.rollout(params, states, obs, None, draws.eps)[2]
+        ts, states, obs, m = step(init_fn(params), states, obs, None, draws)
+        out[dev] = (torch.stack([x[5] for x in traj]).cpu(), ts, states, m)
+    (done_c, ts_c, st_c, m_c), (done_g, ts_g, st_g, m_g) = (out["cpu"],
+                                                            out[device])
+    if not torch.equal(done_c, done_g):
+        raise AssertionError("train step: done codes differ card vs CPU")
+    for f in ("collision", "arrive"):
+        if not torch.equal(getattr(st_c.robots, f),
+                           getattr(st_g.robots, f).cpu()):
+            raise AssertionError(f"train step: final {f} codes differ")
+    if (not torch.equal(st_c.step, st_g.step.cpu())
+            or m_c["reset_scenes"] != m_g["reset_scenes"]
+            or m_c["reset_scenes"] < 1):
+        raise AssertionError("train step: the autoreset differs")
+    worst = max(float((ts_g.params[k].cpu() - v).abs().max())
+                for k, v in ts_c.params.items())
+    moved = max(float((ts_c.params[k] - v).abs().max())
+                for k, v in params0.items())
+    if not worst <= STEP_TOL or not moved > 100 * STEP_TOL:
+        raise AssertionError(f"train step: parameters card vs CPU {worst} "
+                             f"(moved {moved})")
+    return worst, moved, m_c["reset_scenes"]
+
+
+def grad_errors(grads, want):
+    """Per leaf: max |g - w| over the tolerance GRAD_TOL * max|w| + 1e-8."""
+    return {k: float((grads[k].cpu() - w).abs().max())
+            / (GRAD_TOL * float(w.abs().max()) + 1e-8)
+            for k, w in want.items()}
+
+
+def check_train_gradients(model, params, mb, pcfg):
+    """(b) The loss and every gradient leaf of one minibatch at full width
+    on the card (``loss_and_grads``: TF32 off in the forward and the
+    backward) against the same on the CPU, under torch's default TF32
+    flags; then the control, a bare ``loss.backward()`` outside the guard,
+    which the tolerance must catch.  Returns (loss error, worst ratio,
+    control's worst ratio, card ms, CPU ms)."""
+    import copy
+
+    from img_env_tpu_torch.train import ppo
+
+    loss_g, _, grads_g = ppo.loss_and_grads(model, params, mb, pcfg)
+    cpu = lambda x: None if x is None else x.cpu()
+    mb_c = (tuple(cpu(f) for f in mb[0]), *(cpu(x) for x in mb[1:]))
+    params_c = {k: v.cpu() for k, v in params.items()}
+    model_c = copy.deepcopy(model).cpu()
+    t0 = time.perf_counter()
+    loss_c, _, grads_c = ppo.loss_and_grads(model_c, params_c, mb_c, pcfg)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    loss_err = abs(float(loss_g) - float(loss_c))
+    if not loss_err <= GRAD_TOL * abs(float(loss_c)):
+        raise AssertionError(f"train gradients: loss {float(loss_g)} vs "
+                             f"{float(loss_c)}")
+    ratios = grad_errors(grads_g, grads_c)
+    worst = max(ratios.values())
+    if not worst <= 1.0:
+        bad = {k: r for k, r in ratios.items() if r > 1.0}
+        raise AssertionError(f"train gradients: card vs CPU beyond "
+                             f"tolerance {bad}")
+    # the control: the same forward, backward outside the guard
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss, _ = ppo.minibatch_loss(model, p, mb, pcfg)
+    loss.backward()
+    control = max(grad_errors({k: v.grad for k, v in p.items()},
+                              grads_c).values())
+    if not control > 1.0:
+        raise AssertionError(f"train gradients: the unguarded backward "
+                             f"(TF32 on for cuDNN) is within the tolerance "
+                             f"({control}): it would not catch TF32")
+    card_ms = cuda_ms(lambda: ppo.loss_and_grads(model, params, mb, pcfg), 5)
+    return loss_err, worst, control, card_ms, cpu_ms
+
+
+class StepCounter:
+    """Counts the env steps and resets of ``BatchedNavEnv`` while active and
+    checks that every env step launches each of ``once`` exactly once and
+    none of ``never`` (host-side counters: no sync)."""
+
+    def __init__(self, once, never):
+        self.once, self.never = once, never
+        self.steps = self.resets = 0
+        self.step_launches = None
+
+    def __enter__(self):
+        from img_env_tpu_torch import BatchedNavEnv
+        from img_env_tpu_torch.ops import kernels
+
+        self.cls = BatchedNavEnv
+        self.orig = (BatchedNavEnv.step, BatchedNavEnv.reset)
+        step, reset = self.orig
+
+        def counted_step(env, *a, **kw):
+            before = dict(kernels.LAUNCHES)
+            out = step(env, *a, **kw)
+            got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            if (any(got[k] != 1 for k in self.once)
+                    or any(got[k] for k in self.never)):
+                raise AssertionError(f"an env step launched {got}")
+            self.steps += 1
+            self.step_launches = {k: v + (self.step_launches or {}).get(k, 0)
+                                  for k, v in got.items()}
+            return out
+
+        def counted_reset(env, *a, **kw):
+            self.resets += 1
+            return reset(env, *a, **kw)
+
+        BatchedNavEnv.step, BatchedNavEnv.reset = counted_step, counted_reset
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step, self.cls.reset = self.orig
+
+
+def train_path():
+    """(c) The stage-5 continuation at full width through train/run.py's
+    code path (TRAIN_ARGS): launch counts set to 0 just before and read
+    just after, K1-K4 once per env step and K5 never, the loss finite, the parameters moved, the mean
+    reward_mean at least REWARD_FLOOR, a checkpoint round trip; then an
+    unroll with host syncs made errors, whose samples give (b); device
+    operations and busy ms per env step and per update, the crowd's share;
+    K1-K4 against their twins at these shapes.  Returns what it
+    measured."""
+    import tempfile
+
+    from img_env_tpu_torch.core.state import map_tree
+    from img_env_tpu_torch.models.policy import load_ckpt_policy
+    from img_env_tpu_torch.ops import kernels
+    from img_env_tpu_torch.train import checkpoint, ppo, run
+    from torch.func import functional_call
+
+    args = run.parse_args(TRAIN_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    lines = []
+    t0 = time.perf_counter()
+    with StepCounter(("raster", "fill", "paint", "pedmap"),
+                     ("paint_block",)) as counter:
+        res = run.train(args, log=lines.append)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for line in lines:
+        log(f"# train stage5: {line}")
+    env, ts, cfg = res["env"], res["ts"], res["env"].cfg
+    s, n = args.scenes, cfg.robot.total
+    steps = counter.steps
+    if steps != TRAIN_UPDATES * args.unroll:
+        raise AssertionError(f"train stage5: {steps} env steps")
+    for k in ("raster", "fill", "paint", "pedmap"):
+        if launches[k] != steps + counter.resets:
+            raise AssertionError(f"train stage5: {k} launched "
+                                 f"{launches[k]} times in {steps} steps and "
+                                 f"{counter.resets} resets")
+    if launches["paint_block"]:
+        raise AssertionError("train stage5: K5 launched")
+    for m in res["metrics"]:
+        if not all(bool(torch.isfinite(torch.as_tensor(m[k])))
+                   for k in ("loss", "pg_loss", "vf_loss", "entropy")):
+            raise AssertionError(f"train stage5: non-finite metrics {m}")
+    hist = res["history"]
+    reward_mean = float(hist[:, 1].mean())
+    if reward_mean < REWARD_FLOOR:
+        raise AssertionError(f"train stage5: mean reward_mean "
+                             f"{reward_mean} < {REWARD_FLOOR}")
+    start = run.restore_params(POLICY_NPZ, ts.params)
+    moved = max(float((ts.params[k] - v).abs().max())
+                for k, v in start.items() if k != "pi_log_std")
+    if not moved > 0:
+        raise AssertionError("train stage5: the parameters did not move")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tmp + "/stage5_train.pt"
+        checkpoint.save(path, {"ts": ts})
+        back = checkpoint.restore(path, like={"ts": ts},
+                                  device=env.device)["ts"]
+        leaves = lambda t: [t.step, *t.params.values(),
+                            *t.opt_state[1][0].mu.values(),
+                            *t.opt_state[1][0].nu.values(),
+                            t.opt_state[1][0].count]
+        if not all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                     leaves(ts))):
+            raise AssertionError("train stage5: checkpoint round trip")
+        checkpoint.save(path, {"params": ts.params})
+        policy_fn, _ = load_ckpt_policy(cfg, path, env.device)
+        act = policy_fn(None, res["obs"])
+        if act.shape != (s, n, cfg.act_dim) or not bool(
+                torch.isfinite(act).all()):
+            raise AssertionError("train stage5: load_ckpt_policy")
+
+    # an unroll with host syncs made errors; its samples give (b)
+    model, step_fn, gen = res["model"], res["train_step"], res["generator"]
+    states, obs = res["states"], res["obs"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    states_r, obs_r, traj = step_fn.rollout(ts.params, states, obs, gen,
+                                            None)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"# train stage5: an unroll of {args.unroll} steps with host syncs "
+        f"made errors, {time.perf_counter() - t0:.3f} s")
+    pcfg = ppo.PpoConfig(unroll=args.unroll, lr=args.lr, epochs=args.epochs,
+                         minibatches=args.minibatches,
+                         ent_coef=args.ent_coef,
+                         reward_scale=args.reward_scale)
+    with torch.no_grad():
+        last_value = functional_call(model, ts.params, ppo.obs_features(
+            obs_r, True))[-1]
+    data, _ = ppo.rollout_data(traj, last_value, pcfg)
+    idx = torch.randperm(data[1].shape[0], generator=gen,
+                         device=gen.device)[:GRAD_SAMPLES]
+    grads = check_train_gradients(model, ts.params, ppo.take(data, idx),
+                                  pcfg)
+
+    # device operations and busy ms of an update, composed from one update
+    # of trainers with unroll 1 and 2 at the same shapes, the autoreset off
+    # (a profile of a whole update would record ~400,000 events): a rollout
+    # step (policy forward, draw, env step, reward) is their difference,
+    # the rest (the last value, GAE, 4 minibatch forwards, backwards and
+    # optimizer steps) the unroll-1 update less one rollout step
+    t_prof = time.perf_counter()
+    prof = {}
+    for unroll in (1, 2):
+        _, step_u = ppo.make_train_step(env, model, pcfg._replace(
+            unroll=unroll, autoreset=False))
+        step_u(ts, states, obs, gen)                  # warm-up
+        prof[unroll] = device_profile(lambda: step_u(ts, states, obs, gen),
+                                      steps=1)
+    roll_ops = prof[2][0] - prof[1][0]
+    roll_busy = prof[2][1] - prof[1][1]
+    upd_ops = prof[1][0] + (args.unroll - 1) * roll_ops
+    upd_busy = prof[1][1] + (args.unroll - 1) * roll_busy
+    zero = torch.zeros((s, n, 3), device=env.device)
+    step_ops, step_busy = device_profile(lambda: env.step(states, zero),
+                                         steps=1)
+    core = env.core
+
+    def crowd_only():
+        for k in range(s):
+            core._crowd_step(map_tree(lambda x, k=k: x[k], states),
+                             None, None)
+
+    crowd_ops, crowd_busy = device_profile(crowd_only, steps=1)
+    t_prof = time.perf_counter() - t_prof
+    kernel_ms = selfcheck_eval(env, states, "train stage5")
+    tim = res["timings"]
+    per_update = [sum(x.values()) for x in tim]
+    return dict(
+        lines=lines, wall=wall, launches=launches, steps=steps,
+        unroll=args.unroll,
+        resets=counter.resets, peak=peak, hist=hist,
+        reward_mean=reward_mean, moved=moved, timings=tim,
+        s_update=float(np.mean(per_update)),
+        rate=steps * s * n / sum(per_update),
+        per_step={k: v / steps for k, v in counter.step_launches.items()},
+        reset_scenes=[m["reset_scenes"] for m in res["metrics"]],
+        grads=grads, step_ops=step_ops, step_busy=step_busy,
+        roll_ops=roll_ops, roll_busy=roll_busy, upd_ops=upd_ops,
+        upd_busy=upd_busy, opt_ops=prof[1][0] - roll_ops,
+        opt_busy=prof[1][1] - roll_busy, crowd_ops=crowd_ops,
+        crowd_busy=crowd_busy, kernel_ms=kernel_ms, t_prof=t_prof)
+
+
+def report_train(tr) -> None:
+    """Logs what ``train_path`` measured."""
+    tim = tr["timings"]
+    mean_t = {k: float(np.mean([x[k] for x in tim])) for k in tim[0]}
+    ms_env_step = mean_t["rollout"] / tr["unroll"] * 1e3
+    loss_err, g_worst, g_control, g_card_ms, g_cpu_ms = tr["grads"]
+    log(f"# train stage5 (32 scenes x 1 robot, unroll 16, 2 x 2 "
+        f"minibatches, {TRAIN_UPDATES} updates): {tr['wall']:.3f} s wall "
+        f"with the set-up; s per update {tr['s_update']:.3f} (rollout "
+        f"{mean_t['rollout']:.3f}, autoreset {mean_t['autoreset']:.3f}, "
+        f"update {mean_t['update']:.3f}); each update "
+        + "; ".join(f"{x['rollout']:.3f} / {x['autoreset']:.3f} / "
+                    f"{x['update']:.3f}" for x in tim)
+        + f"; {tr['rate']:.1f} robot-steps/s; {ms_env_step:.3f} ms per env "
+        f"step in the rollout (host's clock)")
+    log(f"# train stage5 device: per env step {tr['step_ops']:.1f} "
+        f"operations, {tr['step_busy']:.4f} ms busy, the crowd alone (32 SFM "
+        f"scene steps) {tr['crowd_ops']:.1f} operations "
+        f"({tr['crowd_ops'] / max(tr['step_ops'], 1):.4f} of the step's), "
+        f"{tr['crowd_busy']:.4f} ms busy; per rollout step (policy, draw, "
+        f"env step, reward) {tr['roll_ops']:.1f} operations, "
+        f"{tr['roll_busy']:.4f} ms busy, idle share "
+        f"{1 - tr['roll_busy'] / ms_env_step:.4f}; the update's "
+        f"optimization (last value, GAE, 4 minibatches) "
+        f"{tr['opt_ops']:.1f} operations, {tr['opt_busy']:.4f} ms busy; "
+        f"per update {tr['upd_ops']:.1f} operations, {tr['upd_busy']:.4f} "
+        f"ms busy, idle share "
+        f"{1 - tr['upd_busy'] / (tr['s_update'] * 1e3):.4f} (profiles "
+        f"{tr['t_prof']:.1f} s); peak memory {tr['peak']:.3f} GiB")
+    log(f"# train stage5 curve: reward_mean "
+        f"{[round(float(x), 4) for x in tr['hist'][:, 1]]}, arrive "
+        f"{[float(x) for x in tr['hist'][:, 2]]}, collision "
+        f"{[float(x) for x in tr['hist'][:, 3]]}, mean reward_mean "
+        f"{tr['reward_mean']:.4f} (floor {REWARD_FLOOR}); scenes reset "
+        f"{tr['reset_scenes']}; {tr['steps']} env steps and {tr['resets']} "
+        f"resets launched {tr['launches']}; params moved {tr['moved']:.4g}")
+    log(f"# train stage5 gradients ({GRAD_SAMPLES} samples) card vs CPU: "
+        f"loss within {loss_err:.3g}, worst leaf at {g_worst:.4f} of its "
+        f"tolerance ({GRAD_TOL} of the leaf's largest + 1e-8); the "
+        f"unguarded backward (TF32 on for cuDNN) at {g_control:.2f} of it; "
+        f"loss and gradients {g_card_ms:.4f} ms on the card, "
+        f"{g_cpu_ms:.3f} ms on the CPU; kernel ms at these shapes "
+        f"{tr['kernel_ms']}")
+
+def easy_train_path():
+    """(d) Learning from scratch: README.md:101-104's settings on
+    easy_train.yaml's config (EASY_ARGS) through train/run.py, once for
+    each of EASY_SEEDS.  The mean over the runs of their last-10 mean
+    reward_mean must exceed that of their first-10 means.  Returns (the
+    curves [runs, updates], wall s)."""
+    from img_env_tpu_torch import EnvConfig
+    from img_env_tpu_torch.train import run
+
+    t0 = time.perf_counter()
+    curves = []
+    for seed in EASY_SEEDS:
+        args = list(EASY_ARGS)
+        args[args.index("--seed") + 1] = str(seed)
+        res = run.train(run.parse_args(args),
+                        cfg=EnvConfig.from_dict(EASY_TRAIN),
+                        log=lambda s: None)
+        curves.append(res["history"][:, 1])
+    wall = time.perf_counter() - t0
+    curves = np.stack(curves)
+    first, last = curves[:, :10].mean(), curves[:, -10:].mean()
+    if not last > first:
+        raise AssertionError(f"easy train: last-10 mean {last} against "
+                             f"first-10 {first}; curves {curves.tolist()}")
+    return curves, wall
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1566,6 +1993,9 @@ def main() -> None:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         sys.exit(1)
+    # torch's own TF32 flags, restored for the training path (phase 13)
+    tf32_defaults = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"# torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1807,6 +2237,30 @@ def main() -> None:
     for name, ms in ev["kernel_ms"].items():
         batch_ms[name]["eval bank50"] = ms
 
+    # ---- the training path: PPO on the stage-5 policy, and from scratch,
+    # under torch's default TF32 flags ----
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+        tf32_defaults)
+    log(f"# train: TF32 flags restored to torch's defaults (cuDNN "
+        f"{tf32_defaults[0]}, matmul {tf32_defaults[1]})")
+    worst, moved, n_reset = small_train_reference("cuda")
+    log(f"# small crowd train step card vs CPU: done, collision and arrival "
+        f"codes equal, {n_reset} scene reset on both, parameters within "
+        f"{worst:.3g} (tolerance {STEP_TOL}; they moved {moved:.3g})")
+    tr = train_path()
+    report_train(tr)
+    curves, easy_wall = easy_train_path()
+    per_run = [(round(float(c[:10].mean()), 3),
+                round(float(c[-10:].mean()), 3)) for c in curves]
+    log(f"# easy train from scratch (16 scenes, unroll 16, 50 updates, "
+        f"seeds {EASY_SEEDS}): {easy_wall:.3f} s; reward_mean first-10 mean "
+        f"{curves[:, :10].mean():.4f} -> last-10 mean "
+        f"{curves[:, -10:].mean():.4f} over the runs; (first-10, last-10) "
+        f"per run {per_run}; mean curve "
+        f"{[round(float(x), 3) for x in curves.mean(0)]}")
+    for name, ms in tr["kernel_ms"].items():
+        batch_ms[name]["train stage5"] = ms
+
     src = "img_env_tpu_torch/csrc/"
     meta = {"raster": ("raster.cu", "img_env_tpu/ops/pallas_raster.py:105",
                        launches),
@@ -1823,7 +2277,8 @@ def main() -> None:
                 "bench200ervo": run_e.per_step,
                 "bench200 paint_mode=block": per_step_b,
                 **{k: r.per_step for k, r in batch_runs.items()},
-                "eval bank50": ev["per_step"]}
+                "eval bank50": ev["per_step"],
+                "train stage5": tr["per_step"]}
     rows = [{"name": name, "route": "cuda", "source": src + cu,
              "replaces": replaces, "launches": runs[name],
              "launches_per_step": {p: c[name] for p, c in per_step.items()},

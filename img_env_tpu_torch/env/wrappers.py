@@ -38,7 +38,7 @@ class WrapperState(NamedTuple):
 
 
 def init_wrapper_state(cfg: EnvConfig, n_robots: int = None,
-                       device="cpu") -> WrapperState:
+                       device="cuda") -> WrapperState:
     n = cfg.robot.total if n_robots is None else n_robots
     ib = max(cfg.image_batch, 0)
     sb = max(cfg.state_batch, 0)
@@ -198,7 +198,7 @@ class WrapperStack:
     are skipped.
     """
 
-    def __init__(self, cfg: EnvConfig, n_robots: int = None, device="cpu"):
+    def __init__(self, cfg: EnvConfig, n_robots: int = None, device="cuda"):
         self.cfg = cfg
         self.n_robots = cfg.robot.total if n_robots is None else n_robots
         self.device = torch.device(device)

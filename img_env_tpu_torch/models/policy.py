@@ -23,7 +23,15 @@ It computes what the flax module computes, float32 throughout:
 Weights come from the JAX package's checkpoints as flat float32 arrays
 keyed by flax path (``tools/export_policy_npz.py`` writes them):
 ``policy_params_from_numpy`` converts them to this module's state dict and
-``load_policy_npz`` builds the module on a device.
+``load_policy_npz`` builds the module on a device.  ``init_policy`` draws
+fresh weights as flax's defaults do (lecun-normal kernels, zero biases),
+from a ``torch.Generator``; ``load_ckpt_policy`` reads a training
+checkpoint (``train/checkpoint.py``) or such an npz.
+
+The forward stays differentiable (the PPO loss backpropagates through it):
+no tensor that autograd saves is written in place, and the masked
+attention's ``finfo.min`` logits give finite gradients where a robot sees
+no ped.
 """
 
 from __future__ import annotations
@@ -208,6 +216,50 @@ class CrowdNavPolicy(nn.Module):
             return mean, self.pi_log_std.expand_as(mean), value
 
 
+def example_inputs(cfg: PolicyConfig, batch: int = 8, device="cuda"):
+    """Zero inputs of the policy's shapes (sensor maps, vector states, and
+    the ped maps and vectors where the config uses them)."""
+    h, w = cfg.image_size
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+    return (z(batch, cfg.image_batch, h, w), z(batch, cfg.state_dim),
+            z(batch, 3, h, w) if cfg.use_ped_map else None,
+            z(batch, 1 + cfg.ped_vec_dim * cfg.max_ped)
+            if cfg.use_ped_vec else None)
+
+
+# flax's lecun_normal: a standard normal truncated at +-2, scaled so that
+# the truncated draw's std is sqrt(1 / fan_in) (the std of a standard normal
+# truncated at +-2 is 0.87962566103423978)
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_policy(generator: torch.Generator, cfg: PolicyConfig,
+                device="cuda") -> Tuple[CrowdNavPolicy, Dict[str, Tensor]]:
+    """A fresh ``CrowdNavPolicy`` on ``device`` (the card by default) with
+    flax's default initialisation, and its parameters as a dict: every
+    Dense, Conv and attention kernel lecun-normal with fan_in the flat
+    input (kh*kw*in for a conv; heads*head_dim for the attention's output
+    projection, as flax's ``DenseGeneral`` flattens it), every bias zero,
+    ``pi_log_std`` the constant ``log_std_init``.  The draws come from
+    ``generator`` (on ``device``) in the state dict's order; they are the
+    port's own, not flax's (F4)."""
+    dev = torch.device(device)
+    policy = CrowdNavPolicy(cfg).to(dev)
+    with torch.no_grad():
+        for name, p in policy.named_parameters():
+            if name == "pi_log_std":
+                p.fill_(float(cfg.log_std_init))
+            elif name.endswith(".bias"):
+                p.zero_()
+            else:
+                std = math.sqrt(1.0 / p[0].numel()) / _TRUNC_STD
+                nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                p.mul_(std)
+    params = {k: v.detach().clone() for k, v in policy.state_dict().items()}
+    return policy, params
+
+
 def sample_action(dist, generator: Optional[torch.Generator] = None,
                   draws: Optional[Tensor] = None, continuous_ranges=None):
     """Draw an action from the policy head output.
@@ -314,6 +366,25 @@ def load_policy_npz(path: str, env_cfg, device="cuda") -> CrowdNavPolicy:
     policy = CrowdNavPolicy(PolicyConfig.from_env_config(env_cfg))
     policy.load_state_dict(policy_params_from_numpy(flat), strict=True)
     return policy.to(torch.device(device)).eval()
+
+
+def load_ckpt_policy(env_cfg, path: str, device="cuda"):
+    """Deterministic-eval policy from a training checkpoint: the port's own
+    (``train/checkpoint.save`` of ``{"params": ...}``, as ``train/run.py
+    --save`` writes it) or a JAX-exported npz of flat flax arrays
+    (``tools/export_policy_npz.py``).  ``env_cfg`` must match the training
+    config (the load is strict).  Returns ``(policy_fn, policy)``, with
+    ``policy_fn = mean_action_fn(policy, env_cfg)``."""
+    if str(path).endswith(".npz"):
+        policy = load_policy_npz(path, env_cfg, device)
+    else:
+        from img_env_tpu_torch.train import checkpoint as ckpt_mod
+
+        policy = CrowdNavPolicy(PolicyConfig.from_env_config(env_cfg))
+        params = ckpt_mod.restore(path, device="cpu")["params"]
+        policy.load_state_dict(params, strict=True)
+        policy = policy.to(torch.device(device)).eval()
+    return mean_action_fn(policy, env_cfg), policy
 
 
 def mean_action_fn(policy: CrowdNavPolicy, env_cfg) -> Callable:

@@ -5,7 +5,9 @@ with the ERVO crowd planned with the 'orca' head; and a scene batch
 (``parallel``) with sensor groups, fast mode or no lasers, planned by the
 scene-batched act; and the serving path: ``make_env`` on a dict, one
 ``evaluate_batched`` episode and the committed stage-5 policy through
-``load_policy_npz``."""
+``load_policy_npz``; and the training path: one PPO update of a fresh
+policy on a scene batch with SFM peds, its checkpoint saved and restored,
+and ``train.run``'s warm start from the committed npz."""
 
 import json
 import os
@@ -101,6 +103,46 @@ SERVE_SCRIPT = textwrap.dedent("""
 """)
 
 
+TRAIN_SCRIPT = textwrap.dedent("""
+    import json
+    import os
+    import sys
+    import tempfile
+    BLOCKED = ("jax", "jaxlib", "img_env_tpu", "cv2", "PIL", "yaml",
+               "flax", "orbax", "optax")
+    for name in BLOCKED:
+        sys.modules[name] = None          # any import of them now fails
+
+    import torch
+    from img_env_tpu_torch import BatchedNavEnv, EnvConfig
+    from img_env_tpu_torch.models.policy import PolicyConfig, init_policy
+    from img_env_tpu_torch.train import PpoConfig, make_train_step, run
+    from img_env_tpu_torch.train import checkpoint
+
+    cfg = EnvConfig.from_dict(json.loads(sys.argv[1]))
+    env = BatchedNavEnv(cfg, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    model, params = init_policy(gen, PolicyConfig.from_env_config(cfg),
+                                "cpu")
+    init_fn, train_step = make_train_step(
+        env, model, PpoConfig(unroll=2, epochs=1, minibatches=2))
+    states, obs = env.reset(2)
+    ts, states, obs, m = train_step(init_fn(params), states, obs, gen)
+    assert int(ts.step) == 1 and bool(torch.isfinite(m["loss"]))
+    path = os.path.join(tempfile.mkdtemp(), "ts.pt")
+    checkpoint.save(path, ts)
+    back = checkpoint.restore(path, like=ts, device="cpu")
+    assert all(torch.equal(back.params[k], v) for k, v in ts.params.items())
+    with open("img_env_tpu_torch/artifacts/stage5_policy_env.json") as f:
+        s5 = EnvConfig.from_dict(json.load(f))
+    _, p5 = init_policy(gen, PolicyConfig.from_env_config(s5), "cpu")
+    run.restore_params("img_env_tpu_torch/artifacts/stage5_policy.npz", p5)
+    leaked = [m for m in sys.modules if sys.modules[m] is not None
+              and m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("port-ok")
+""")
+
 def _run(cfg_dict, head="cv", scenes=None, script=SCRIPT):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -151,3 +193,8 @@ def test_serving_path_without_jax_cv2_pil_yaml():
                     "MultiRobotCleanWrapper", "StateBatchWrapper",
                     "ObsLaserStateTmp", "NeverStopWrapper"]
     _run(d, script=SERVE_SCRIPT)
+
+
+def test_training_update_without_jax_optax_cv2_pil_yaml():
+    """One PPO update of a fresh policy on two scenes of the SFM config."""
+    _run(ped_cfg_dict(), script=TRAIN_SCRIPT)

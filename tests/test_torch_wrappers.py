@@ -175,7 +175,7 @@ def test_time_limit_info_log_and_clean():
             infoj = jw.info_log_wrapper(jcfg, oj, dj, {"dones_info": dij})
             wsj, rj, spj, infoj = jw.multi_robot_clean_wrapper(
                 wsj, jnp.asarray(reward), jnp.asarray(speeds), dj, infoj)
-        wst = tw.init_wrapper_state(cfg)._replace(
+        wst = tw.init_wrapper_state(cfg, device="cpu")._replace(
             elapsed=torch.as_tensor(elapsed), is_clean=torch.as_tensor(clean))
         wst, dt, dit = tw.time_limit_wrapper(cfg, wst, torch.as_tensor(done),
                                              torch.as_tensor(di))
@@ -214,7 +214,7 @@ def test_state_batch_push_and_clear(batches):
     rng = np.random.default_rng(20)
     with jax.enable_x64(False):
         wsj = jw.init_wrapper_state(jcfg)
-    wst = tw.init_wrapper_state(cfg)
+    wst = tw.init_wrapper_state(cfg, device="cpu")
     for f in tw.WrapperState._fields:
         _eq(getattr(wst, f), getattr(wsj, f), f)
     for _ in range(4):
@@ -237,7 +237,7 @@ def test_wrapper_stack_reset_and_steps():
     wrapper state."""
     jcfg, cfg = both_cfgs(batches=(1, 3, 1))
     rng = np.random.default_rng(30)
-    js, ts = jw.WrapperStack(jcfg), tw.WrapperStack(cfg)
+    js, ts = jw.WrapperStack(jcfg), tw.WrapperStack(cfg, device="cpu")
     oj, ot = both_obs(obs_arrays(rng, cfg))
     with jax.enable_x64(False):
         wsj, sj = js.on_reset(js.init_state(), oj)

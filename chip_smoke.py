@@ -77,7 +77,23 @@ beep_r 1.0 and ped_ca_p 0.8 as in img_env_tpu/configs/ervo_crowd.yaml):
      rate at least ARRIVE_FLOOR; K1-K4 against their twins at these
      shapes; then the small evaluator config card vs CPU: one facade
      episode (make_env, its wrapper stack) and a 3-episode evaluation
-     equal, the recorder's poses too.
+     equal, the recorder's poses too;
+ 13. the training path under torch's default TF32 flags: a small SFM
+     train step card vs CPU, the full-width gradients, 3 updates of the
+     stage-5 continuation at 32 scenes, and three 50-update runs from
+     scratch on easy_train's config;
+ 14. the rest of the MPC engine and the BARN benchmark (TF32 off again):
+     the LQT passes at 200 robots x H=12 (assoc vs seq on the card, card
+     vs CPU, float64 and float32); the small config's iLQR act and a CEM
+     solve on injected draws card vs CPU; the iLQR control step at
+     bench200 (2 warm-up and 5 timed steps, act ms, device operations and
+     busy ms per act, host syncs per act; K1-K3 once per env step; the
+     mean goal distance falls); BARN over generated worlds 0-99 x 3
+     episodes with run_barn's goal-field MPPI (ms per control step, device
+     operations of the fields, the rest of the act and the env step, idle
+     share, peak memory; the fields card = CPU bit for bit; K1-K3 against
+     their twins at BARN's shapes and once per step; arrive share at least
+     BARN_ARRIVE_FLOOR, static collisions at most BARN_STATIC_COLL_CEIL).
 
 Each path's launch counts are set to 0 just before it and read just after
 (per control step: the reset's launches left out).  Any failed phase
@@ -1393,9 +1409,9 @@ def check_policy(policy, cfg, obs):
 
 def selfcheck_eval(benv, states, name="eval bank50"):
     """K1-K4 against their twins at the shapes of a path of S scenes of one
-    robot (the evaluation and training paths: K1 over S maps, K2 with one
-    robot a scene, K3 on its thresholds, K4 over the S robots and their
-    scenes' peds); returns {kernel: ms}."""
+    robot (the evaluation, training and BARN paths: K1 over S maps, K2
+    with one robot a scene, K3 on its thresholds, K4 over the S robots and
+    their scenes' peds where there are peds); returns {kernel: ms}."""
     from img_env_tpu_torch.env import observe
     from img_env_tpu_torch.ops import pedmap, polar, raster
 
@@ -1427,6 +1443,8 @@ def selfcheck_eval(benv, states, name="eval bank50"):
     ms["paint"] = cuda_ms(lambda: painter.paint_slots_kernel(
         pt, s_hit, s_tail, pst.n_slots), 20)
     m = states.peds.pos.shape[1]
+    if m == 0:          # no peds (BARN): K4 has no input
+        return ms
     base = [x.reshape(-1, m) for x in observe.peds_in_base(
         pose, states.peds.pos, states.peds.vel)]
     hs, r_img = int(core.cfg.ped_image_size[0]), float(core.cfg.ped_image_r)
@@ -1981,6 +1999,343 @@ def easy_train_path():
     return curves, wall
 
 
+# ---- phase 14: the rest of the MPC engine (LQT, iLQR, CEM, the geodesic
+# goal field) and the BARN benchmark ----
+
+LQT_ROBOTS = 200            # one LQT problem per bench200 robot
+LQT_TOL_F32 = 1e-4          # float32, of each output's largest entry
+SMALL_MPC_TOL = 1e-3        # small iLQR and CEM, card vs CPU actions; costs
+                            # rtol 1e-4 (float32 transcendentals differ)
+ILQR_WARMUP = 2
+ILQR_STEPS = 5              # timed iLQR control steps at bench200
+BARN_WORLDS = 100           # worlds 0-99: the protocol's first chunk
+BARN_EPISODES = 3
+BARN_MAX_STEPS = 150
+BARN_ARRIVE_FLOOR = 0.95    # the JAX protocol's 0.9944 less ~10 binomial
+                            # sigma at 300 episodes
+BARN_STATIC_COLL_CEIL = 0.02
+
+
+def lqt_problems(dtype, robots: int = LQT_ROBOTS, h: int = 12, n: int = 3,
+                 m: int = 2, seed: int = 14):
+    """Random LQT problems, one per robot, as tests/test_lqr.py draws them
+    (numpy from a seed)."""
+    from img_env_tpu_torch.mpc import lqr
+
+    rng = np.random.default_rng(seed)
+
+    def psd(k, *batch):
+        a = rng.normal(size=batch + (k, k))
+        return a @ np.swapaxes(a, -1, -2) + k * np.eye(k)
+
+    arrays = (rng.normal(size=(robots, h, n, n)) * 0.4 + np.eye(n),
+              rng.normal(size=(robots, h, n, m)),
+              rng.normal(size=(robots, h, n)) * 0.1,
+              psd(n, robots, h) * 0.1, rng.normal(size=(robots, h, n)) * 0.1,
+              psd(m, robots, h), rng.normal(size=(robots, h, m)) * 0.1,
+              psd(n, robots), rng.normal(size=(robots, n)))
+    return lqr.LqtProblem(*(torch.as_tensor(a.astype(dtype))
+                            for a in arrays))
+
+
+def lqt_check(device="cuda"):
+    """(14a) ``lqt_backward_assoc`` against ``lqt_backward_seq`` on the
+    card, and the card against the CPU port, on 200 robots' problems (H =
+    12, n = 3, m = 2): float64 to tests/test_lqr.py's 1e-8, float32 to
+    LQT_TOL_F32 of each output's largest entry.  Returns worst errors,
+    times and device operations."""
+    from img_env_tpu_torch.mpc import lqr
+
+    out = {}
+    for name, dtype in (("f64", np.float64), ("f32", np.float32)):
+        p_c = lqt_problems(dtype)
+        p_g = lqr.LqtProblem(*(x.to(device) for x in p_c))
+        seq_g = lqr.lqt_backward_seq(p_g)
+        assoc_g = lqr.lqt_backward_assoc(p_g)
+        assoc_c = lqr.lqt_backward_assoc(p_c)
+        worst = {"assoc vs seq": 0.0, "card vs cpu": 0.0}
+        for a, b, c in zip(assoc_g, seq_g, assoc_c):
+            a, b, c = a.cpu().double(), b.cpu().double(), c.double()
+            if dtype == np.float64:
+                ok = (bool(torch.allclose(a, b, rtol=1e-8, atol=1e-8))
+                      and bool(torch.allclose(a, c, rtol=1e-8, atol=1e-8)))
+                scale = 1.0
+            else:
+                scale = float(c.abs().max())
+                ok = max(float((a - b).abs().max()),
+                         float((a - c).abs().max())) <= LQT_TOL_F32 * scale
+            worst["assoc vs seq"] = max(worst["assoc vs seq"],
+                                        float((a - b).abs().max()) / scale)
+            worst["card vs cpu"] = max(worst["card vs cpu"],
+                                       float((a - c).abs().max()) / scale)
+            if not ok:
+                raise AssertionError(f"LQT {name}: {worst}")
+        worst["assoc ms"] = cuda_ms(lambda: lqr.lqt_backward_assoc(p_g), 5)
+        worst["seq ms"] = cuda_ms(lambda: lqr.lqt_backward_seq(p_g), 5)
+        worst["assoc ops"], _ = device_profile(
+            lambda: lqr.lqt_backward_assoc(p_g))
+        out[name] = worst
+    return out
+
+
+def small_mpc_reference(device="cuda"):
+    """(14b) ``MpcController(method='ilqr').act_fn`` on SMALL's config from
+    one reset state, card vs CPU (iLQR draws nothing), and ``cem_plan`` for
+    robot 0 on injected draws; actions within SMALL_MPC_TOL, costs within
+    rtol 1e-4.  Returns the worst differences."""
+    from img_env_tpu_torch import EnvConfig, MpcController, MppiConfig, NavEnv
+    from img_env_tpu_torch.core.convert import (world_state_from_numpy,
+                                                world_state_to_numpy)
+    from img_env_tpu_torch.mpc import mppi
+    from img_env_tpu_torch.mpc.controller import MpcState
+
+    cfg = EnvConfig.from_dict(SMALL)
+    env_c, env_g = NavEnv(cfg, "cpu"), NavEnv(cfg, device)
+    mcfg = MppiConfig(horizon=H, samples=K)
+    ctl_c = MpcController(env_c, mcfg, method="ilqr")
+    ctl_g = MpcController(env_g, mcfg, method="ilqr")
+    st_c, _ = env_c.reset()
+    st_g = world_state_from_numpy(world_state_to_numpy(st_c), device)
+    ms = ctl_c.init_state()
+    a_c, ms_c, c_c = ctl_c.act_fn(st_c, ms)
+    a_g, ms_g, c_g = ctl_g.act_fn(st_g, MpcState(ms.nominal.to(device)))
+    worst = {"ilqr actions": float((a_c - a_g.cpu()).abs().max()),
+             "ilqr plan": float((ms_c.nominal - ms_g.nominal.cpu()).abs()
+                                .max()),
+             "ilqr cost rel": float(((c_c - c_g.cpu()) / c_c).abs().max()),
+             "ilqr moved": float(a_c[:, :2].abs().max())}
+    gen = torch.Generator().manual_seed(14)
+    noise = torch.randn((mcfg.cem_iters, K, H, 2), generator=gen)
+    outs = []
+    for env_x, ctl_x, st_x in ((env_c, ctl_c, st_c), (env_g, ctl_g, st_g)):
+        wc = ctl_x.world_cost(scene_axis(st_x))
+        wc = wc._replace(scene=wc.scene[:1])
+        r = st_x.robots
+        outs.append(mppi.cem_plan(
+            noise.to(env_x.device), mppi.init_planner(mcfg, env_x.device),
+            r.pose[0], r.vw_last0[0], r.vw_last1[0], r.goal[0], wc,
+            env_x.statics.limiter_v, env_x.statics.limiter_w,
+            torch.zeros((H, 0, 2), device=env_x.device),
+            torch.zeros(0, device=env_x.device), mcfg))
+    worst["cem action"] = float((outs[0][0] - outs[1][0].cpu()).abs().max())
+    worst["cem cost rel"] = abs(float(outs[0][2]) / float(outs[1][2]) - 1)
+    if (max(worst["ilqr actions"], worst["cem action"]) > SMALL_MPC_TOL
+            or max(worst["ilqr cost rel"], worst["cem cost rel"]) > 1e-4
+            or worst["ilqr moved"] < 0.05):
+        raise AssertionError(f"small iLQR / CEM card vs CPU: {worst}")
+    return worst
+
+
+def count_syncs(fn) -> int:
+    """Host syncs in one call of fn (torch.cuda.set_sync_debug_mode's
+    warnings)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchronizing" in str(w.message) for w in seen)
+
+
+def ilqr_path(env):
+    """(14c) The iLQR control step at bench200: ``MpcController(env,
+    method='ilqr')`` (IlqrConfig(horizon=12, iters=8, 5 step sizes) as the
+    controller builds it), reset, ILQR_WARMUP warm-up and ILQR_STEPS timed
+    control steps (act + env step), launch counts set to 0 just before;
+    then act ms (synchronised, host clock), device operations and busy ms
+    per act, host syncs per act.  K1-K3 once per env step, K4 and K5
+    never; the mean goal distance falls."""
+    from img_env_tpu_torch import MpcController, MppiConfig
+    from img_env_tpu_torch.ops import kernels
+
+    ctl = MpcController(env, MppiConfig(horizon=H, samples=K),
+                        method="ilqr")
+    kernels.reset_launch_counts()
+    state, _ = env.reset()
+    at_reset = dict(kernels.LAUNCHES)
+    mss = ctl.init_state()
+    goal_d = lambda st: float((st.robots.goal - st.robots.pose[:, :2])
+                              .norm(dim=-1).mean())
+    d0 = goal_d(state)
+
+    def control_step():
+        nonlocal state, mss
+        actions, mss, costs = ctl.act(state, mss)
+        state, obs, *_ = env.step(state, actions)
+        return costs
+
+    for _ in range(ILQR_WARMUP):
+        control_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ILQR_STEPS):
+        costs = control_step()
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / ILQR_STEPS * 1e3
+    launches = dict(kernels.LAUNCHES)
+    steps = ILQR_WARMUP + ILQR_STEPS
+    per_step = {k: (v - at_reset[k]) / steps for k, v in launches.items()}
+    d1 = goal_d(state)
+    act_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctl.act(state, mss)
+        torch.cuda.synchronize()
+        act_ms.append((time.perf_counter() - t0) * 1e3)
+    ops, busy = device_profile(lambda: ctl.act(state, mss))
+    syncs = count_syncs(lambda: ctl.act(state, mss))
+    out = dict(ms_step=ms_step, act_ms=float(np.mean(act_ms)), ops=ops,
+               busy_ms=busy, idle_share=1.0 - busy / float(np.mean(act_ms)),
+               syncs=syncs, per_step=per_step, launches=launches,
+               goal_d=(d0, d1), costs_finite=bool(torch.isfinite(costs).all()),
+               arrived=int(state.robots.arrive.sum()),
+               codes=torch.bincount(state.robots.collision.long(),
+                                    minlength=4).tolist())
+    bad = [k for k in ("raster", "fill", "paint") if per_step[k] != 1.0]
+    bad += [k for k in ("pedmap", "paint_block") if per_step[k]]
+    if bad or not out["costs_finite"] or not d1 < d0:
+        raise AssertionError(f"iLQR bench200: launches per step {per_step}, "
+                             f"goal distance {d0} -> {d1}, finite costs "
+                             f"{out['costs_finite']}")
+    return out
+
+
+def barn_path(device="cuda"):
+    """(14d) BARN with the goal field: worlds 0-99 generated in a temporary
+    directory (``generate_worlds(n=100, seed0=0)``), then
+    ``run_barn_suite_batched`` with run_barn's profile (MppiConfig(horizon=8,
+    samples=64, goal_field=True) and its corridor weights), 3 episodes a
+    world, max_steps 150, one chunk of 100, the launch counts set to 0 just
+    before and read just after (each partial redraw's observation launches
+    K1-K3 once more; the env steps and redraws are counted).  Then, from a
+    fresh reset of the same 100 worlds and 3 steps: device operations and
+    busy ms of the goal fields alone, of the act and of the env step; the
+    fields card vs CPU bit for bit; K1-K3 against their twins at these
+    shapes.  Fails unless the arrive share over the 300 episodes is at
+    least BARN_ARRIVE_FLOOR and the static-collision share at most
+    BARN_STATIC_COLL_CEIL."""
+    import tempfile
+
+    from img_env_tpu_torch import BatchedNavEnv, EnvConfig, MpcController
+    from img_env_tpu_torch.datasets import barn
+    from img_env_tpu_torch.eval import barn as eval_barn
+    from img_env_tpu_torch.mpc.cost import geodesic_field
+    from img_env_tpu_torch.ops import kernels
+    from img_env_tpu_torch.parallel import batched_env
+
+    mc, w8 = eval_barn.corridor_profile()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        worlds = barn.generate_worlds(tmp, n=BARN_WORLDS, seed0=0)
+        out["generate_s"] = time.perf_counter() - t0
+        cfg = EnvConfig.from_dict(barn.world_cfg_dict(worlds[0]))
+        counts = {"steps": 0, "redraws": 0, "redrawn": 0}
+        cls = batched_env.BatchedNavEnv
+        real_step, real_reset = cls.step, cls.reset
+
+        def step(self, *args, **kw):
+            counts["steps"] += 1
+            return real_step(self, *args, **kw)
+
+        def reset(self, samples=None, carry=None, static_maps=None):
+            if carry is not None:
+                counts["redraws"] += 1
+                counts["redrawn"] += int(samples)
+            return real_reset(self, samples, carry, static_maps)
+
+        cls.step, cls.reset = step, reset
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            rows = eval_barn.run_barn_suite_batched(
+                worlds, cfg, mpc=mc, mpc_weights=w8,
+                episodes_per_world=BARN_EPISODES, max_steps=BARN_MAX_STEPS,
+                chunk=BARN_WORLDS, device=device)
+            torch.cuda.synchronize()
+            out["wall_s"] = time.perf_counter() - t0
+        finally:
+            cls.step, cls.reset = real_step, real_reset
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = dict(kernels.LAUNCHES)
+        steps = counts["steps"]
+        # the first reset and each redraw observe once: leave them out
+        per_step = {k: (v - (1 + counts["redraws"]) * (k in (
+            "raster", "fill", "paint"))) / steps for k, v in launches.items()}
+        episodes = sum(r["episodes"] for r in rows)
+        out.update(
+            counts=counts, steps=steps, launches=launches,
+            per_step=per_step, episodes=episodes,
+            ms_step=out["wall_s"] / steps * 1e3,
+            arrive=sum(r["arrive_rate"] * r["episodes"] for r in rows)
+            / episodes,
+            static_coll=sum(r["static_coll_rate"] * r["episodes"]
+                            for r in rows) / episodes,
+            stuck=sum(r["stuck_rate"] * r["episodes"] for r in rows)
+            / episodes,
+            worlds_below=sum(r["arrive_rate"] < 1.0 for r in rows))
+        if episodes != BARN_WORLDS * BARN_EPISODES:
+            raise AssertionError(f"BARN: {episodes} episodes")
+        bad = [k for k in ("raster", "fill", "paint") if per_step[k] != 1.0]
+        bad += [k for k in ("paint_block",) if per_step[k]]
+        if bad:
+            raise AssertionError(f"BARN: launches per step {per_step}, "
+                                 f"{counts}")
+
+        # profiled steps from a fresh reset of the same worlds
+        benv = BatchedNavEnv(cfg, device)
+        ctl = MpcController(benv.core, mc, weights=w8)
+        maps_t = torch.as_tensor(eval_barn.load_padded_maps(worlds, cfg),
+                                 device=benv.device)
+        states, obs = benv.reset(BARN_WORLDS, static_maps=maps_t)
+        mss = ctl.init_scenes_state(BARN_WORLDS)
+        for _ in range(3):
+            actions, mss, _ = ctl.act_scenes(states, mss)
+            states, obs, *_ = benv.step(states, actions)
+        wc = ctl.world_cost(states)
+        goals = states.robots.goal.reshape(-1, 2)
+        field = lambda dev: geodesic_field(
+            wc.edt[wc.scene].to(dev), float(wc.resolution), goals.to(dev),
+            wc.robot_radius)
+        f_g, f_c = field(device), field("cpu")
+        mism = int((f_g.cpu().view(torch.int32)
+                    != f_c.view(torch.int32)).sum())
+        out["field_mismatch"] = mism
+        out["field_shape"] = tuple(f_g.shape)
+        out["field_reached"] = float((f_c < f_c.max()).float().mean())
+        if mism:
+            raise AssertionError(f"BARN: geodesic fields card != CPU "
+                                 f"({mism} cells)")
+        out["field_ops"], out["field_busy_ms"] = device_profile(
+            lambda: field(device))
+        out["act_ops"], out["act_busy_ms"] = device_profile(
+            lambda: ctl.act_scenes(states, mss))
+        out["env_ops"], out["env_busy_ms"] = device_profile(
+            lambda: benv.step(states, actions))
+        out["idle_share"] = 1.0 - (out["act_busy_ms"] + out["env_busy_ms"]) \
+            / out["ms_step"]
+        out["act_syncs"] = count_syncs(lambda: ctl.act_scenes(states, mss))
+        out["kernel_ms"] = selfcheck_eval(benv, states, "barn100")
+        out["shapes"] = dict(maps=tuple(states.obs_map.shape),
+                             view=benv.core.statics.polar.params.hpx,
+                             beams=benv.core.cfg.range_total)
+    if (out["arrive"] < BARN_ARRIVE_FLOOR
+            or out["static_coll"] > BARN_STATIC_COLL_CEIL):
+        raise AssertionError(f"BARN: arrive share {out['arrive']:.4f} "
+                             f"(floor {BARN_ARRIVE_FLOOR}), static-collision "
+                             f"share {out['static_coll']:.4f} (ceiling "
+                             f"{BARN_STATIC_COLL_CEIL})")
+    return out
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2261,6 +2616,53 @@ def main() -> None:
     for name, ms in tr["kernel_ms"].items():
         batch_ms[name]["train stage5"] = ms
 
+    # ---- the rest of the MPC engine and the BARN benchmark (phase 14),
+    # float32 without TF32 as in phases 1-12 ----
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t14 = time.perf_counter()
+    lqt = lqt_check()
+    log(f"# LQT, {LQT_ROBOTS} robots x H=12 (n=3, m=2): {json.dumps(lqt)} "
+        f"(float64 within 1e-8; float32 worst relative to each output's "
+        f"largest entry, tolerance {LQT_TOL_F32})")
+    small = small_mpc_reference()
+    log(f"# small iLQR act and CEM card vs CPU: {json.dumps(small)} "
+        f"(actions within {SMALL_MPC_TOL}, costs within rtol 1e-4)")
+    il = ilqr_path(env)
+    log(f"# iLQR bench200 (200 robots, H=12, 8 iterations, 5 step sizes): "
+        f"{il['ms_step']:.3f} ms per control step over {ILQR_STEPS} steps "
+        f"(+{ILQR_WARMUP} warm-up), act {il['act_ms']:.3f} ms (host clock, "
+        f"synchronised), {il['ops']:.1f} device operations and "
+        f"{il['busy_ms']:.4f} ms device busy per act, idle share of the act "
+        f"{il['idle_share']:.4f}, {il['syncs']} host syncs per act; mean "
+        f"goal distance {il['goal_d'][0]:.4f} -> {il['goal_d'][1]:.4f} m, "
+        f"arrived {il['arrived']}/200, collision codes 0/1/2/3 "
+        f"{il['codes']} (iLQR's cost has no collision term; the JAX "
+        f"controller collides alike: tools/ilqr_collisions.py); "
+        f"launches per step {il['per_step']}")
+    br = barn_path()
+    log(f"# BARN, worlds 0-{BARN_WORLDS - 1} x {BARN_EPISODES} episodes "
+        f"(max_steps {BARN_MAX_STEPS}, goal-field MPPI H=8 K=64): arrive "
+        f"share {br['arrive']:.4f} over {br['episodes']} episodes, static "
+        f"collision {br['static_coll']:.4f}, stuck {br['stuck']:.4f}, "
+        f"{br['worlds_below']} worlds below 1.0; {br['wall_s']:.3f} s wall, "
+        f"{br['steps']} control steps, {br['ms_step']:.3f} ms per control "
+        f"step (redraws {br['counts']['redraws']} of "
+        f"{br['counts']['redrawn']} worlds); per step {br['field_ops']:.1f} "
+        f"device operations in the goal fields ({br['field_busy_ms']:.4f} "
+        f"ms busy), {br['act_ops'] - br['field_ops']:.1f} in the rest of "
+        f"the act ({br['act_busy_ms'] - br['field_busy_ms']:.4f} ms), "
+        f"{br['env_ops']:.1f} in the env step ({br['env_busy_ms']:.4f} ms); "
+        f"idle share {br['idle_share']:.4f}; {br['act_syncs']} host syncs "
+        f"per act; peak memory {br['peak_gib']:.3f} GiB; fields "
+        f"{br['field_shape']} card = CPU ({br['field_mismatch']} mismatched "
+        f"cells, {br['field_reached']:.3f} of cells reached); shapes "
+        f"{br['shapes']}; worlds generated in {br['generate_s']:.3f} s; "
+        f"launches per step {br['per_step']}; kernel ms {br['kernel_ms']}")
+    log(f"# phase 14: {time.perf_counter() - t14:.1f} s")
+    for name, ms in br["kernel_ms"].items():
+        batch_ms[name]["barn100"] = ms
+
     src = "img_env_tpu_torch/csrc/"
     meta = {"raster": ("raster.cu", "img_env_tpu/ops/pallas_raster.py:105",
                        launches),
@@ -2278,7 +2680,8 @@ def main() -> None:
                 "bench200 paint_mode=block": per_step_b,
                 **{k: r.per_step for k, r in batch_runs.items()},
                 "eval bank50": ev["per_step"],
-                "train stage5": tr["per_step"]}
+                "train stage5": tr["per_step"],
+                "ilqr bench200": il["per_step"], "barn100": br["per_step"]}
     rows = [{"name": name, "route": "cuda", "source": src + cu,
              "replaces": replaces, "launches": runs[name],
              "launches_per_step": {p: c[name] for p, c in per_step.items()},

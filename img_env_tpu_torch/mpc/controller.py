@@ -1,13 +1,17 @@
 """MPC controller bound to a NavEnv (torch port of
-``img_env_tpu.mpc.controller``, MPPI method).
+``img_env_tpu.mpc.controller``).
 
 ``act_scenes`` builds the per-episode ``WorldCost`` from the live states of
 S scenes (the episode EDTs that reset computed over the static map plus
 sampled obstacles), predicts the pedestrians over the horizon once per
-solve (mpc/prediction.py: 'cv', 'orca' or 'sfm') and runs one K-sample
-MPPI solve per robot of every scene against its scene's peds and the
-``avoid_k`` nearest other robots of its scene.  ``act_fn`` is the one-scene
-case.
+solve (mpc/prediction.py: 'cv', 'orca' or 'sfm') and plans every robot of
+every scene in one batch against its scene's peds and other robots: with
+``method='ilqr'`` one iLQR solve per robot (mpc/ilqr.py), warm-started
+from the shifted plan, and with any other method one K-sample MPPI solve
+per robot against the ``avoid_k`` nearest other robots of its scene.
+``method='cem'`` plans with MPPI, as the reference's controller does
+(controller.py:120-136; ROADMAP F23): ``mppi.cem_plan`` is reachable only
+as a function.  ``act_fn`` is the one-scene case.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from img_env_tpu_torch.core.state import WorldState, map_tree
 from img_env_tpu_torch.mpc.cost import CostWeights, WorldCost
 from img_env_tpu_torch.mpc.edt import edt2d
+from img_env_tpu_torch.mpc.ilqr import IlqrConfig, batched_ilqr
 from img_env_tpu_torch.mpc.mppi import MppiConfig, batched_mppi
 from img_env_tpu_torch.mpc.prediction import HEADS, predict_peds
 
@@ -35,14 +40,12 @@ class MpcController:
                  weights: Optional[CostWeights] = None,
                  method: str = "mppi", ped_prediction: str = "cv",
                  seed: int = 0):
-        if method != "mppi":
-            raise NotImplementedError(
-                f"MPC method {method!r} is not ported (only 'mppi')")
         if ped_prediction not in HEADS:
             raise NotImplementedError(
                 f"ped prediction head {ped_prediction!r} is not ported "
                 f"(only {HEADS})")
         self.ped_prediction = ped_prediction
+        self.method = method
         self.env = env
         self.device = env.device
         ranges = env.cfg.continuous_actions
@@ -130,14 +133,15 @@ class MpcController:
         """Plan for S scenes (states with a leading [S] axis, as
         ``parallel.BatchedNavEnv`` holds them; the JAX package vmaps
         ``act_fn`` over scenes, bench.py:462): all S*N robots in ONE
-        ``batched_mppi`` solve, each robot against its own scene's
-        clearance field (``world_cost``), predicted peds (predicted once per
-        solve, shared by all rollouts) and nearest robots, the other robots
-        joining the avoidance set as constant-velocity tracks.  ``noise``:
-        optional [S, N, K, H, 2] draws (default: drawn from the controller's
-        generator).  Returns (actions [S, N, 3], MpcState(nominal
-        [S, N, H, 2]), costs [S, N]).  The ped prediction runs once for all
-        scenes with the 'cv' head and scene by scene with the crowd heads."""
+        ``batched_mppi`` (or ``batched_ilqr``) solve, each robot against
+        its own scene's clearance field (``world_cost``), predicted peds
+        (predicted once per solve, shared by all rollouts) and robots, the
+        other robots joining the avoidance set as constant-velocity tracks.
+        ``noise``: optional [S, N, K, H, 2] MPPI draws (default: drawn from
+        the controller's generator; iLQR draws none).  Returns (actions
+        [S, N, 3], MpcState(nominal [S, N, H, 2]), costs [S, N]).  The ped
+        prediction runs once for all scenes with the 'cv' head and scene by
+        scene with the crowd heads."""
         env = self.env
         r = states.robots
         s, n = r.pose.shape[:2]
@@ -145,8 +149,6 @@ class MpcController:
         flat = lambda x: x.reshape((b,) + x.shape[2:])
         pose = flat(r.pose)
         dtype, dev = pose.dtype, pose.device
-        noise = (self.draw_noise(dtype, s) if noise is None
-                 else flat(noise))
         st = env.statics
         dt = float(env.cfg.control_hz)
         horizon = self.cfg.horizon
@@ -168,12 +170,27 @@ class MpcController:
         ts = (torch.arange(1, horizon + 1, dtype=torch.float32, device=dev)
               * dt).to(dtype)[:, None, None]
         robot_traj = pose[None, :, :2] + flat(r.vel_world)[None] * ts
-        acts, nominal, costs = batched_mppi(
-            noise, flat(mpc_state.nominal), pose, flat(r.vw_last0),
-            flat(r.vw_last1), flat(r.goal), self.world_cost(states),
-            st.limiter_v, st.limiter_w, ped_traj, env.crowd.ped_r.to(dtype),
-            self.cfg, self.weights, dt, env.cfg.robot_type == "omni",
-            robot_traj=robot_traj, robot_r=self._robot_r.to(dtype).repeat(s))
+        wc = self.world_cost(states)
+        ped_r = env.crowd.ped_r.to(dtype)
+        robot_r = self._robot_r.to(dtype).repeat(s)
+        if self.method == "ilqr":
+            icfg = IlqrConfig(horizon=horizon, v_range=self.cfg.v_range,
+                              w_range=self.cfg.w_range)
+            us, _, costs = batched_ilqr(
+                pose, flat(r.goal), flat(mpc_state.nominal), wc, ped_traj,
+                ped_r, icfg, self.weights, dt, robot_traj=robot_traj,
+                robot_r=robot_r)
+            acts = us[:, 0]
+            nominal = torch.cat([us[:, 1:], us[:, -1:]], dim=1)
+        else:
+            noise = (self.draw_noise(dtype, s) if noise is None
+                     else flat(noise))
+            acts, nominal, costs = batched_mppi(
+                noise, flat(mpc_state.nominal), pose, flat(r.vw_last0),
+                flat(r.vw_last1), flat(r.goal), wc, st.limiter_v,
+                st.limiter_w, ped_traj, ped_r, self.cfg, self.weights, dt,
+                env.cfg.robot_type == "omni", robot_traj=robot_traj,
+                robot_r=robot_r)
         actions = torch.cat([acts, acts.new_zeros((b, 1))], dim=-1)
         return (actions.reshape(s, n, 3),
                 MpcState(nominal=nominal.reshape(s, n, horizon, 2)),

@@ -1,14 +1,15 @@
-"""Sampling MPC: MPPI over the exact unicycle dynamics (torch port of the
-MPPI part of ``img_env_tpu.mpc.mppi``).
+"""Sampling MPC: MPPI and CEM over the exact unicycle dynamics (torch port
+of ``img_env_tpu.mpc.mppi``).
 
 Every robot rolls K perturbed action sequences over an H-step horizon with
 the same closed-form arc kinematics and speed limiter the sim applies,
 scores them with the planning cost (mpc/cost.py) and returns the
-information-theoretic MPPI weighting.  ``vmap`` over robots becomes a
-leading robot dimension ([N, K, H, 2] tensors) and ``lax.scan`` over the
-horizon a Python loop.  The Gaussian noise is an argument: the controller
-draws it from its ``torch.Generator`` (the JAX package's threefry draws
-cannot be reproduced, so the tests hand both packages the same noise).
+information-theoretic MPPI weighting (or the CEM elite refit).  ``vmap``
+over robots becomes a leading robot dimension ([N, K, H, 2] tensors) and
+``lax.scan`` over the horizon a Python loop.  The Gaussian noise is an
+argument: the controller draws it from its ``torch.Generator`` (the JAX
+package's threefry draws cannot be reproduced, so the tests hand both
+packages the same noise).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from img_env_tpu_torch.dynamics.limiter import LimiterParams, limit_command
 from img_env_tpu_torch.mpc.cost import (
     CostWeights,
     WorldCost,
+    geodesic_field,
     local_edt_patch,
     pooled_edt,
     stage_cost,
@@ -38,12 +40,39 @@ class MppiConfig(NamedTuple):
     sigma_w: float = 0.3
     v_range: Tuple[float, float] = (0.0, 0.6)
     w_range: Tuple[float, float] = (-0.9, 0.9)
+    elites: int = 32                 # CEM only
+    cem_iters: int = 3               # CEM only
     avoid_k: int = 16                # the k CURRENTLY-nearest other robots
                                      # join each planner's clearance set
                                      # (0 = all N-1)
     exact_cost: bool = False         # no k-nearest pruning, no min-pooled
                                      # EDT window (pool 1)
-    goal_field: bool = False         # geodesic goal term (not ported)
+    goal_field: bool = False         # goal term follows a per-robot
+                                     # geodesic distance-to-goal field
+                                     # (cost.geodesic_field): global
+                                     # guidance for maze/cave worlds (BARN)
+
+
+class PlannerState(NamedTuple):
+    nominal: torch.Tensor   # [H,2] current nominal action plan (v,w)
+
+
+def init_planner(cfg: MppiConfig, device="cuda",
+                 dtype=torch.float32) -> PlannerState:
+    return PlannerState(nominal=torch.zeros((cfg.horizon, 2), dtype=dtype,
+                                            device=device))
+
+
+def _perturbed(nominal, noise, std_v, std_w, cfg: MppiConfig):
+    """Candidates ``nominal + noise * std`` clipped to the action box, per
+    channel (Python scalars need no host-to-device copy): nominal
+    [..., H, 2] against noise [..., K, H, 2], std_v / std_w scalars or
+    [H]."""
+    return torch.stack([
+        (nominal[..., None, :, 0] + noise[..., 0] * std_v).clamp(
+            cfg.v_range[0], cfg.v_range[1]),
+        (nominal[..., None, :, 1] + noise[..., 1] * std_w).clamp(
+            cfg.w_range[0], cfg.w_range[1])], dim=-1)
 
 
 def _rollout_costs(actions, pose, vw0, vw1, goal, wc: WorldCost,
@@ -51,7 +80,9 @@ def _rollout_costs(actions, pose, vw0, vw1, goal, wc: WorldCost,
                    limiter_w: LimiterParams, avoid_traj, avoid_r,
                    dt: float, omni: bool, local_edt):
     """actions [N, K, H, 2]; pose [N, 3]; vw0/vw1 [N, 2]; goal [N, 2];
-    avoid_traj [N, H, M, 2], avoid_r [N, M].  Returns costs [N, K]."""
+    avoid_traj [N, H, M, 2], avoid_r [N, M]; local_edt from
+    ``local_edt_patch``, or None for full-map lookups.  Returns costs
+    [N, K]."""
     n, k, h, _ = actions.shape
     pose = pose[:, None].expand(n, k, 3)
     a0 = vw0[:, None].expand(n, k, 2)
@@ -67,7 +98,61 @@ def _rollout_costs(actions, pose, vw0, vw1, goal, wc: WorldCost,
                                a0[..., 0], a0[..., 1], avoid_traj[:, t],
                                avoid_r, local_edt)
         a0, a1 = torch.stack([v, w], dim=-1), a0
-    return acc + terminal_cost(w8, pose[..., :2], goal)
+    return acc + terminal_cost(wc, w8, pose[..., :2], goal)
+
+
+def mppi_plan(noise, ps: PlannerState, pose, vw0, vw1, goal,
+              wc: WorldCost, limiter_v: LimiterParams,
+              limiter_w: LimiterParams, ped_traj, ped_r,
+              cfg: MppiConfig, w8: CostWeights = CostWeights(),
+              dt: float = 0.4, omni: bool = False, local_edt=None):
+    """One MPPI solve for a single robot.  Returns (action [2], new state,
+    cost).
+
+    noise [K, H, 2]: standard normal draws; pose [3], vw0/vw1 [2], goal
+    [2]; ``wc`` with ``scene`` [1] (the robot's scene); ped_traj [H, M, 2]
+    predicted ped positions (mpc/prediction.py heads), ped_r [M];
+    local_edt for the robot from ``local_edt_patch`` (default: full-map
+    lookups)."""
+    cand = _perturbed(ps.nominal, noise, cfg.sigma_v, cfg.sigma_w, cfg)
+    costs = _rollout_costs(cand[None], pose[None], vw0[None], vw1[None],
+                           goal[None], wc, w8, limiter_v, limiter_w,
+                           ped_traj[None], ped_r[None], dt, omni,
+                           local_edt)[0]
+    beta = costs.amin()
+    wts = torch.softmax(-(costs - beta) / cfg.lam, dim=0)
+    plan = torch.einsum("k,khd->hd", wts, cand)
+    # receding horizon: shift, repeat last
+    nominal = torch.cat([plan[1:], plan[-1:]], dim=0)
+    return plan[0], PlannerState(nominal=nominal), (wts * costs).sum()
+
+
+def cem_plan(noise, ps: PlannerState, pose, vw0, vw1, goal,
+             wc: WorldCost, limiter_v: LimiterParams,
+             limiter_w: LimiterParams, ped_traj, ped_r,
+             cfg: MppiConfig, w8: CostWeights = CostWeights(),
+             dt: float = 0.4, omni: bool = False):
+    """Cross-entropy method with ``cem_iters`` refits of a diagonal
+    Gaussian, for a single robot (arguments as ``mppi_plan``'s).  noise
+    [cem_iters, K, H, 2]: each refit's standard normal draws.  The elites
+    are the ``cfg.elites`` cheapest candidates, the lower index first on
+    ties (``jax.lax.top_k``'s order).  Returns (action [2], new state, the
+    last refit's mean elite cost)."""
+    mean, std_v, std_w = ps.nominal, cfg.sigma_v, cfg.sigma_w
+    for it in range(cfg.cem_iters):
+        cand = _perturbed(mean, noise[it], std_v, std_w, cfg)
+        costs = _rollout_costs(cand[None], pose[None], vw0[None], vw1[None],
+                               goal[None], wc, w8, limiter_v, limiter_w,
+                               ped_traj[None], ped_r[None], dt, omni,
+                               None)[0]
+        idx = torch.sort(costs, stable=True).indices[:cfg.elites]
+        elite = cand[idx]                                     # [E,H,2]
+        mean = elite.mean(0)
+        std = elite.std(0, correction=0) + 1e-4
+        std_v, std_w = std[:, 0], std[:, 1]
+        cost = costs[idx].mean()
+    nominal = torch.cat([mean[1:], mean[-1:]], dim=0)
+    return mean[0], PlannerState(nominal=nominal), cost
 
 
 def _scene_neighbours(poses, scene, robot_traj, robot_r, nps: int,
@@ -111,17 +196,16 @@ def batched_mppi(noise, ps_nominal, poses, vw0, vw1, goals,
     other robots of its scene (the clearance term is a min, which near
     neighbours decide; all-pairs scoring is O(N^2 K H)), else every other
     robot of its scene.
+    With ``cfg.goal_field`` each robot's goal term reads its own geodesic
+    field over its scene's EDT, recomputed every solve as the reference
+    does (mppi.py:209-212; ROADMAP F8).
     """
-    if cfg.goal_field:
-        raise NotImplementedError("MppiConfig.goal_field (geodesic goal "
-                                  "term) is not ported")
     n = poses.shape[0]
-    # per channel with Python scalars: no host-to-device copies in the solve
-    cand = torch.stack([
-        (ps_nominal[:, None, :, 0] + noise[..., 0] * cfg.sigma_v).clamp(
-            cfg.v_range[0], cfg.v_range[1]),
-        (ps_nominal[:, None, :, 1] + noise[..., 1] * cfg.sigma_w).clamp(
-            cfg.w_range[0], cfg.w_range[1])], dim=-1)
+    cand = _perturbed(ps_nominal, noise, cfg.sigma_v, cfg.sigma_w, cfg)
+    if cfg.goal_field:
+        wc = wc._replace(goal_field=geodesic_field(
+            wc.edt[wc.scene], float(wc.resolution), goals,
+            wc.robot_radius))
 
     avoid_traj = ped_traj[wc.scene]                           # [N, H, M, 2]
     avoid_r = ped_r[None].expand(n, ped_traj.shape[-2])

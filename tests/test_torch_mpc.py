@@ -240,6 +240,101 @@ def test_act_with_orca_head_and_segments_matches_jax(x64):
 
 
 def test_unported_prediction_head_raises():
+    """A prediction head the port lacks raises; every ``method`` builds
+    (the reference plans 'cem' with MPPI: ROADMAP F23)."""
     env_t = NavEnv(EnvConfig.from_dict(ped_cfg_dict()), "cpu")
     with pytest.raises(NotImplementedError):
-        MpcController(env_t, method="cem")
+        MpcController(env_t, ped_prediction="sgan")
+    for method in ("mppi", "cem", "ilqr"):
+        assert MpcController(env_t, method=method).method == method
+
+
+def _one_robot(dt):
+    """One robot in a random clearance field with two AABBs (one invalid)
+    and two predicted peds: the single-robot planners' inputs."""
+    rng = np.random.default_rng(12)
+    edt = (rng.random((80, 70)) * 1.5).astype(dt)
+    aabb = np.array([[3.0, 3.2, 3.4, 3.9], [1.0, 1.0, 1.5, 1.5]], dt)
+    pose = np.array([2.5, 2.6, 0.7], dt)
+    goal = np.array([5.5, 4.5], dt)
+    vw = rng.uniform(0, 0.3, (2, 2)).astype(dt)
+    nominal = rng.uniform(0.0, 0.4, (H, 2)).astype(dt)
+    ts = np.arange(1, H + 1)[:, None, None] * 0.4
+    peds = (np.array([[3.5, 2.5], [2.0, 3.5]])[None]
+            + np.array([[0.1, 0.2], [0.3, -0.1]])[None] * ts).astype(dt)
+    return edt, aabb, pose, goal, vw, nominal, peds, np.array([0.3, 0.2], dt)
+
+
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("planner", ["mppi_plan", "cem_plan"])
+def test_single_robot_planners_match_jax(planner, x64):
+    """The one-robot ``mppi_plan`` (full-map lookups) and ``cem_plan``
+    (3 refits of 32 elites, the lower index first on cost ties, the
+    deviation with ddof 0) on the JAX draws: ``jax.random.normal`` of the
+    key, and of its ``cem_iters`` splits for CEM.  Same tolerances as the
+    batched act."""
+    dt = np.float64 if x64 else np.float32
+    edt, aabb, pose, goal, vw, nominal, peds, ped_r = _one_robot(dt)
+    key = jax.random.PRNGKey(21)
+    cfg_j = jmppi.MppiConfig(horizon=H, samples=K)
+    with jax.enable_x64(x64):
+        if planner == "cem_plan":
+            noise = np.array(jax.vmap(lambda k: jax.random.normal(
+                k, (K, H, 2)))(jax.random.split(key, cfg_j.cem_iters)))
+        else:
+            noise = np.array(jax.random.normal(key, (K, H, 2)))
+        wc = jcost.WorldCost(edt=jnp.asarray(edt), resolution=0.1,
+                             obs_aabb=jnp.asarray(aabb),
+                             obs_valid=jnp.asarray([True, False]),
+                             robot_radius=0.17)
+        lim = JLim.from_config(JaxLimiterConfig())
+        want = jax.jit(lambda: getattr(jmppi, planner)(
+            key, jmppi.PlannerState(jnp.asarray(nominal)), jnp.asarray(pose),
+            jnp.asarray(vw[0]), jnp.asarray(vw[1]), jnp.asarray(goal), wc,
+            lim, lim, jnp.asarray(peds), jnp.asarray(ped_r), cfg_j,
+            jcost.CostWeights(), 0.4, False))()
+    t = torch.as_tensor
+    wc_t = cost.WorldCost(edt=t(edt)[None], resolution=0.1,
+                          obs_aabb=t(aabb)[None],
+                          obs_valid=torch.tensor([[True, False]]),
+                          robot_radius=0.17,
+                          scene=torch.zeros(1, dtype=torch.int64))
+    lim_t = LimiterParams.from_config(SpeedLimiterConfig())
+    got = getattr(mppi, planner)(
+        t(noise), mppi.PlannerState(t(nominal)), t(pose), t(vw[0]), t(vw[1]),
+        t(goal), wc_t, lim_t, lim_t, t(peds), t(ped_r),
+        mppi.MppiConfig(horizon=H, samples=K), cost.CostWeights(), 0.4,
+        False)
+    tol = TOLS[x64]
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               atol=tol["act"], rtol=0)
+    np.testing.assert_allclose(got[1].nominal.numpy(),
+                               np.asarray(want[1].nominal), atol=tol["nom"],
+                               rtol=0)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                               rtol=tol["cost"])
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_cem_elites_take_the_lower_index_on_ties(sign):
+    """Equal costs: the elite is the lower-index candidate, as
+    ``jax.lax.top_k`` orders them.  A robot held at v = 0 turning at +w or
+    -w pays one cost, so candidates (+-0.1, +-0.2, ...) tie in pairs; the
+    first of the cheapest pair is the plan."""
+    cfg = mppi.MppiConfig(horizon=4, samples=8, elites=1, cem_iters=1,
+                          v_range=(0.0, 0.0))
+    noise = torch.zeros((1, 8, 4, 2))
+    w = torch.tensor([1.0, -1.0, 2.0, -2.0, 3.0, -3.0, 4.0, -4.0]) / 3
+    noise[0, :, :, 1] = sign * w[:, None]
+    wc = cost.WorldCost(edt=torch.full((1, 20, 20), 5.0), resolution=0.1,
+                        obs_aabb=torch.zeros((1, 0, 4)),
+                        obs_valid=torch.zeros((1, 0), dtype=torch.bool),
+                        robot_radius=0.17,
+                        scene=torch.zeros(1, dtype=torch.int64))
+    lim = LimiterParams.from_config(SpeedLimiterConfig())
+    act, ps, c = mppi.cem_plan(
+        noise, mppi.init_planner(cfg, "cpu"), torch.tensor([1.0, 1.0, 0.0]),
+        torch.zeros(2), torch.zeros(2), torch.tensor([1.5, 1.0]), wc, lim,
+        lim, torch.zeros((4, 0, 2)), torch.zeros(0), cfg)
+    assert float(act[1]) == pytest.approx(sign * 0.1, abs=1e-7)
+    assert float(act[0]) == 0.0

@@ -143,6 +143,70 @@ TRAIN_SCRIPT = textwrap.dedent("""
     print("port-ok")
 """)
 
+MPC_BARN_SCRIPT = textwrap.dedent("""
+    import json
+    import os
+    import sys
+    import tempfile
+    BLOCKED = ("jax", "jaxlib", "img_env_tpu", "cv2", "PIL", "yaml")
+    for name in BLOCKED:
+        sys.modules[name] = None          # any import of them now fails
+
+    import torch
+    from img_env_tpu_torch import EnvConfig, MpcController, MppiConfig, NavEnv
+    from img_env_tpu_torch.core.state import map_tree
+    from img_env_tpu_torch.datasets import barn
+    from img_env_tpu_torch.eval import barn as eval_barn
+    from img_env_tpu_torch.mpc import (LqtProblem, cem_plan, init_planner,
+                                       lqt_backward_assoc, lqt_backward_seq)
+
+    cfg = EnvConfig.from_dict(json.loads(sys.argv[1]))
+    env = NavEnv(cfg, "cpu")
+    ctl = MpcController(env, MppiConfig(horizon=4, samples=16),
+                        method="ilqr")
+    state, obs = env.reset()
+    actions, ms, costs = ctl.act(state, ctl.init_state())
+    assert actions.shape == (cfg.robot.total, 3)
+    assert bool(torch.isfinite(costs).all())
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64)
+    eye = lambda k: torch.eye(k, dtype=torch.float64)
+    p = LqtProblem(F=eye(3).expand(4, 3, 3) + 0.1 * r(4, 3, 3),
+                   L=r(4, 3, 2), c=r(4, 3), Q=eye(3).expand(4, 3, 3),
+                   q=r(4, 3), R=eye(2).expand(4, 2, 2), r=r(4, 2),
+                   QT=eye(3), qT=r(3))
+    assert torch.allclose(lqt_backward_seq(p)[2], lqt_backward_assoc(p)[2])
+    wc = ctl.world_cost(map_tree(lambda x: x[None], state))
+    wc = wc._replace(scene=wc.scene[:1])
+    cfg_c = MppiConfig(horizon=4, samples=16, elites=4, cem_iters=2)
+    act, ps, c = cem_plan(torch.randn(2, 16, 4, 2, generator=g),
+                          init_planner(cfg_c, "cpu"), state.robots.pose[0],
+                          state.robots.vw_last0[0], state.robots.vw_last1[0],
+                          state.robots.goal[0], wc, env.statics.limiter_v,
+                          env.statics.limiter_w, torch.zeros((4, 0, 2)),
+                          torch.zeros(0), cfg_c)
+    assert act.shape == (2,) and bool(torch.isfinite(c))
+
+    out = tempfile.mkdtemp()
+    worlds = barn.generate_worlds(os.path.join(out, "w"), n=2)
+    wcfg = EnvConfig.from_dict(barn.world_cfg_dict(worlds[0], n_beams=32))
+    mc, w8 = eval_barn.corridor_profile()
+    rows = eval_barn.run_barn_suite_batched(
+        worlds, wcfg, mpc=mc._replace(samples=8), mpc_weights=w8,
+        episodes_per_world=1, max_steps=2, device="cpu",
+        output_csv=os.path.join(out, "b.csv"))
+    assert [r["episodes"] for r in rows] == [1, 1]
+    rows = eval_barn.run_barn_suite(
+        worlds[:1], wcfg, eval_barn.straight_policy, episodes_per_world=1,
+        max_steps=2, device="cpu")
+    assert len(rows) == 1 and "arrive_rate" in rows[0]
+    leaked = [m for m in sys.modules if sys.modules[m] is not None
+              and m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("port-ok")
+""")
+
+
 def _run(cfg_dict, head="cv", scenes=None, script=SCRIPT):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -198,3 +262,10 @@ def test_serving_path_without_jax_cv2_pil_yaml():
 def test_training_update_without_jax_optax_cv2_pil_yaml():
     """One PPO update of a fresh policy on two scenes of the SFM config."""
     _run(ped_cfg_dict(), script=TRAIN_SCRIPT)
+
+
+def test_mpc_engine_and_barn_without_jax_cv2_pil_yaml():
+    """An iLQR act, the LQT passes and CEM on the small config, and two
+    generated BARN worlds through both suites (the batched one planning
+    with the goal-field MPPI)."""
+    _run(small_cfg_dict(), script=MPC_BARN_SCRIPT)

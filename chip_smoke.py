@@ -94,6 +94,18 @@ beep_r 1.0 and ped_ca_p 0.8 as in img_env_tpu/configs/ervo_crowd.yaml):
      share, peak memory; the fields card = CPU bit for bit; K1-K3 against
      their twins at BARN's shapes and once per step; arrive share at least
      BARN_ARRIVE_FLOOR, static collisions at most BARN_STATIC_COLL_CEIL).
+ 15. the mesh: the stage-5 continuation over ``make_mesh()`` (a world of
+     one rank, NCCL) bit-equal to the same without a mesh; the statics of
+     bench200 and of the production-shape program of
+     __graft_entry__._production_cfg (8 scenes x 8 robots, 400x400 views,
+     960 beams, two sensor groups, SFM leg peds) cold and warm through
+     IMG_ENV_TPU_STATICS_CACHE; that program sharded over two spawned
+     ranks on the card (gloo, CUDA tensors) for a reset and 3 steps, each
+     rank bit-equal to the unsharded batch on its scenes and launching K1
+     once, K2 and K3 twice and K4 once a step; and one PPO update of the
+     stage-5 continuation sharded over the two ranks (16 scenes each):
+     the loss and the parameters equal on both, the summed gradient
+     within the error model of the one-process gradient.
 
 Each path's launch counts are set to 0 just before it and read just after
 (per control step: the reset's launches left out).  Any failed phase
@@ -104,6 +116,8 @@ raises.  Prints the kernels' JSON line, then as its last line
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -372,11 +386,12 @@ EASY_ARGS = ["--scenes", "16", "--unroll", "16", "--lr", "3e-4",
 # first-10 vs last-10 comparison fails by chance; the check averages
 # EASY_SEEDS runs
 EASY_SEEDS = (0, 1, 2)
-# the full-width gradient, card vs CPU: each leaf within GRAD_TOL of its
-# largest magnitude, plus 1e-8 for the attention's key bias, whose exact
-# gradient is 0 (float32 in other summation orders; TF32's 10-bit mantissa
-# errs by ~1e-3)
-GRAD_TOL = 1e-4
+# the full-width gradient, card vs CPU: each leaf within the error model
+# of img_env_tpu_torch.train.ppo (GRAD_REL of the leaf's largest sum of
+# per-sample term magnitudes, plus GRAD_ABS); a leaf whose terms cancel
+# (value.bias, pi_mean.bias) can sum to far below its terms, where a
+# tolerance of 1e-4 of its own largest magnitude failed on rounding
+# (tools/grad_terms.py); TF32 convolutions err by >= 3 times the tolerance
 GRAD_SAMPLES = 256
 # one small train step card vs CPU (clip + sgd 0.05): parameters within
 # STEP_TOL (they move by ~5e-3)
@@ -1687,20 +1702,16 @@ def small_train_reference(device):
     return worst, moved, m_c["reset_scenes"]
 
 
-def grad_errors(grads, want):
-    """Per leaf: max |g - w| over the tolerance GRAD_TOL * max|w| + 1e-8."""
-    return {k: float((grads[k].cpu() - w).abs().max())
-            / (GRAD_TOL * float(w.abs().max()) + 1e-8)
-            for k, w in want.items()}
-
-
 def check_train_gradients(model, params, mb, pcfg):
     """(b) The loss and every gradient leaf of one minibatch at full width
     on the card (``loss_and_grads``: TF32 off in the forward and the
     backward) against the same on the CPU, under torch's default TF32
-    flags; then the control, a bare ``loss.backward()`` outside the guard,
-    which the tolerance must catch.  Returns (loss error, worst ratio,
-    control's worst ratio, card ms, CPU ms)."""
+    flags, each leaf within the error model (``ppo.grad_error_ratios``
+    over ``ppo.grad_term_sums`` on the card); then the control, a bare
+    ``loss.backward()`` outside the guard, which the tolerance must catch.
+    Returns (loss error, worst ratio, control's worst ratio, card ms, CPU
+    ms, the worst leaf, pi_mean.bias's and value.bias's gradient and
+    largest term sum)."""
     import copy
 
     from img_env_tpu_torch.train import ppo
@@ -1714,10 +1725,11 @@ def check_train_gradients(model, params, mb, pcfg):
     loss_c, _, grads_c = ppo.loss_and_grads(model_c, params_c, mb_c, pcfg)
     cpu_ms = (time.perf_counter() - t0) * 1e3
     loss_err = abs(float(loss_g) - float(loss_c))
-    if not loss_err <= GRAD_TOL * abs(float(loss_c)):
+    if not loss_err <= 1e-4 * abs(float(loss_c)):
         raise AssertionError(f"train gradients: loss {float(loss_g)} vs "
                              f"{float(loss_c)}")
-    ratios = grad_errors(grads_g, grads_c)
+    sums = ppo.grad_term_sums(model, params, mb, pcfg)
+    ratios = ppo.grad_error_ratios(grads_g, grads_c, sums)
     worst = max(ratios.values())
     if not worst <= 1.0:
         bad = {k: r for k, r in ratios.items() if r > 1.0}
@@ -1727,14 +1739,17 @@ def check_train_gradients(model, params, mb, pcfg):
     p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     loss, _ = ppo.minibatch_loss(model, p, mb, pcfg)
     loss.backward()
-    control = max(grad_errors({k: v.grad for k, v in p.items()},
-                              grads_c).values())
+    control = max(ppo.grad_error_ratios({k: v.grad for k, v in p.items()},
+                                        grads_c, sums).values())
     if not control > 1.0:
         raise AssertionError(f"train gradients: the unguarded backward "
                              f"(TF32 on for cuDNN) is within the tolerance "
                              f"({control}): it would not catch TF32")
     card_ms = cuda_ms(lambda: ppo.loss_and_grads(model, params, mb, pcfg), 5)
-    return loss_err, worst, control, card_ms, cpu_ms
+    leaves = {k: (float(grads_c[k].abs().max()), float(sums[k].max()))
+              for k in ("pi_mean.bias", "value.bias")}
+    return (loss_err, worst, control, card_ms, cpu_ms,
+            max(ratios, key=ratios.get), leaves)
 
 
 class StepCounter:
@@ -1752,7 +1767,9 @@ class StepCounter:
         from img_env_tpu_torch.ops import kernels
 
         self.cls = BatchedNavEnv
-        self.orig = (BatchedNavEnv.step, BatchedNavEnv.reset)
+        # every reset, the autoreset's partial ones too, goes through
+        # reset_local
+        self.orig = (BatchedNavEnv.step, BatchedNavEnv.reset_local)
         step, reset = self.orig
 
         def counted_step(env, *a, **kw):
@@ -1771,11 +1788,12 @@ class StepCounter:
             self.resets += 1
             return reset(env, *a, **kw)
 
-        BatchedNavEnv.step, BatchedNavEnv.reset = counted_step, counted_reset
+        BatchedNavEnv.step, BatchedNavEnv.reset_local = (counted_step,
+                                                         counted_reset)
         return self
 
     def __exit__(self, *exc):
-        self.cls.step, self.cls.reset = self.orig
+        self.cls.step, self.cls.reset_local = self.orig
 
 
 def train_path():
@@ -1930,10 +1948,13 @@ def train_path():
 
 def report_train(tr) -> None:
     """Logs what ``train_path`` measured."""
+    from img_env_tpu_torch.train import ppo
+
     tim = tr["timings"]
     mean_t = {k: float(np.mean([x[k] for x in tim])) for k in tim[0]}
     ms_env_step = mean_t["rollout"] / tr["unroll"] * 1e3
-    loss_err, g_worst, g_control, g_card_ms, g_cpu_ms = tr["grads"]
+    (loss_err, g_worst, g_control, g_card_ms, g_cpu_ms, g_leaf,
+     g_leaves) = tr["grads"]
     log(f"# train stage5 (32 scenes x 1 robot, unroll 16, 2 x 2 "
         f"minibatches, {TRAIN_UPDATES} updates): {tr['wall']:.3f} s wall "
         f"with the set-up; s per update {tr['s_update']:.3f} (rollout "
@@ -1965,8 +1986,10 @@ def report_train(tr) -> None:
         f"{tr['reset_scenes']}; {tr['steps']} env steps and {tr['resets']} "
         f"resets launched {tr['launches']}; params moved {tr['moved']:.4g}")
     log(f"# train stage5 gradients ({GRAD_SAMPLES} samples) card vs CPU: "
-        f"loss within {loss_err:.3g}, worst leaf at {g_worst:.4f} of its "
-        f"tolerance ({GRAD_TOL} of the leaf's largest + 1e-8); the "
+        f"loss within {loss_err:.3g}, worst leaf {g_leaf} at "
+        f"{g_worst:.4f} of its tolerance ({ppo.GRAD_REL} of the leaf's "
+        f"largest sum of per-sample term magnitudes + {ppo.GRAD_ABS}); "
+        f"(largest |gradient|, largest term sum) {g_leaves}; the "
         f"unguarded backward (TF32 on for cuDNN) at {g_control:.2f} of it; "
         f"loss and gradients {g_card_ms:.4f} ms on the card, "
         f"{g_cpu_ms:.3f} ms on the CPU; kernel ms at these shapes "
@@ -2336,6 +2359,358 @@ def barn_path(device="cuda"):
     return out
 
 
+# ---- phase 15: the mesh on the card ----
+
+# __graft_entry__._production_cfg's program (the JAX package's
+# production-shape dryrun): 8 robots a scene with offset sensors on the
+# odd ones (two sensor groups), 10 circle obstacles and 4 SFM leg peds in
+# room_10, 400x400 views at 0.015 m, 960 beams; 8 scenes over 2 ranks.
+# The sensor offsets go under "robot", where the config reads them
+# (config.py:92); the JAX dict puts them at the top level, where they are
+# not read, so its dryrun runs one sensor group
+PRODUCTION = {
+    "env_name": "dryrun_big",
+    "control_hz": 0.4,
+    "robot": {"total": 8, "shape": ["circle"], "size": [[0.0, 0.0, 0.17]],
+              "begin_poses_type": ["range"],
+              "begin_poses": [[1.0, 9.0, 1.0, 9.0]],
+              "target_poses_type": ["range"],
+              "target_poses": [[1.0, 9.0, 1.0, 9.0]],
+              "sensor_cfgs": [[0.0, 0.0] if i % 2 == 0 else [0.1, 0.0]
+                              for i in range(8)]},
+    "object": {"total": 10, "shape": ["circle"],
+               "size_range": [[0.15, 0.25]], "poses_type": ["range"],
+               "poses": [[1.5, 8.5, 1.5, 8.5]]},
+    "ped_sim": {"total": 4, "type": "pedscene", "max_speed": [0.5],
+                "shape": ["leg"], "size": [[0.0, 0.1, 0.1]],
+                "begin_poses_type": ["range"],
+                "begin_poses": [[1.0, 9.0, 1.0, 9.0]],
+                "target_poses_type": ["range"],
+                "target_poses": [[1.0, 9.0, 1.0, 9.0]], "go_back": "yes"},
+    "global_map": {"map_file": "room_10.png", "resolution": 0.1},
+    "view_map": {"resolution": 0.015, "width": 6.0, "height": 6.0},
+    "range_total": 960,
+    "max_ped": 4,
+    "state_dim": 3,
+}
+MESH_RANKS = 2
+MESH_SCENES = 8
+MESH_STEPS = 3
+# the fields tests/test_multidev_parity.py:36-43 holds bit-exact across
+# sharding, and the vector fields it holds to 1e-12
+MESH_BITEXACT = ("sensor_maps", "lasers", "angular_maps", "is_collisions",
+                 "is_arrives")
+MESH_VECTORS = ("vector_states", "ped_vector_states", "ped_maps", "step_ds")
+# a rank's collectives time out after this many seconds (a dead peer ends
+# the phase), and the phase kills its ranks after RANK_TIMEOUT_S
+RANK_PG_TIMEOUT_S = 120.0
+RANK_TIMEOUT_S = 400.0
+
+
+def stage5_update(mesh):
+    """Phase 13's stage-5 continuation (TRAIN_ARGS: 32 scenes, unroll 16,
+    2 x 2 minibatches, warm-started, pi_log_std -2) over ``mesh`` (None:
+    no mesh), set up as train/run.py sets it up: a rollout of the initial
+    parameters gives one minibatch's gradient (``minibatch_grads`` of
+    GRAD_SAMPLES global samples), then one update.  Returns the gradient,
+    the minibatch's loss terms, the update's loss, parameters and seconds,
+    and what the comparison with one process needs."""
+    import dataclasses
+
+    from img_env_tpu_torch import BatchedNavEnv
+    from img_env_tpu_torch.models.policy import PolicyConfig, init_policy
+    from img_env_tpu_torch.train import ppo, run
+
+    args = run.parse_args(TRAIN_ARGS)
+    cfg = run.load_config(args.cfg)
+    dev = torch.device("cuda")
+    env = BatchedNavEnv(cfg, dev, seed=args.seed + 1, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model, params = init_policy(gen, dataclasses.replace(
+        PolicyConfig.from_env_config(cfg), log_std_init=args.sigma0), dev)
+    params = run.restore_params(args.restore, params)
+    params["pi_log_std"] = torch.full_like(params["pi_log_std"],
+                                           args.force_sigma)
+    pcfg = ppo.PpoConfig(unroll=args.unroll, lr=args.lr, epochs=args.epochs,
+                         minibatches=args.minibatches,
+                         ent_coef=args.ent_coef,
+                         reward_scale=args.reward_scale)
+    init_fn, step = ppo.make_train_step(env, model, pcfg)
+    states, obs = env.reset(args.scenes)
+    gen.manual_seed(args.seed + 2)
+    _, obs_r, traj = step.rollout(params, states, obs, gen, None)
+    last = step.forward(params, ppo.obs_features(obs_r, True))[-1]
+    data, _ = ppo.rollout_data(traj, last, pcfg)
+    n_all = args.unroll * args.scenes * cfg.robot.total
+    idx = torch.randperm(n_all, generator=gen, device=dev)[:GRAD_SAMPLES]
+    grads, terms = step.minibatch_grads(params, data, idx)
+    tim = {}
+    ts, _, _, m = step(init_fn(params), states, obs, gen, timings=tim)
+    return dict(grads=grads, terms=terms, loss=m["loss"], params=ts.params,
+                update_s=sum(tim.values()), timings=tim, model=model,
+                params0=params, pcfg=pcfg, data=data, idx=idx, env=env,
+                unroll=args.unroll, scenes=args.scenes)
+
+
+def mesh_of_one_path():
+    """15a: the stage-5 continuation over ``make_mesh()`` (a world of one
+    rank, NCCL for CUDA tensors) against the same without a mesh, from the same seeds, with
+    cuDNN's deterministic algorithms: the minibatch gradient, the loss
+    terms, the update's loss and parameters must be bit-equal.  Returns
+    (the largest differences, the update seconds of both)."""
+    import torch.distributed as dist
+
+    from img_env_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    if ((mesh.size(0), mesh.size(1), dist.get_world_size()) != (1, 1, 1)
+            or "cuda:nccl" not in dist.get_backend_config()):
+        raise AssertionError(f"mesh of one: {mesh}, world "
+                             f"{dist.get_world_size()} "
+                             f"{dist.get_backend_config()}")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a, b = stage5_update(mesh), stage5_update(None)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    diff = lambda x, y: float((x.double() - y.double()).abs().max())
+    out = {"grads": max(diff(a["grads"][k], v)
+                        for k, v in b["grads"].items()),
+           "terms": diff(a["terms"], b["terms"]),
+           "loss": diff(a["loss"], b["loss"]),
+           "params": max(diff(a["params"][k], v)
+                         for k, v in b["params"].items())}
+    if any(out.values()):
+        raise AssertionError(f"mesh of one: not bit-equal to no mesh {out}")
+    return out, (a["update_s"], b["update_s"])
+
+
+def mesh_batch_rank() -> dict:
+    """15b, one rank: PRODUCTION's MESH_SCENES scenes sharded over the
+    ranks (gloo, CUDA tensors), reset with the env's own draws and
+    MESH_STEPS steps, launch counts set to 0 before the steps and read
+    after; then the unsharded batch from the same seed on this rank's
+    rows.  Returns the field errors, launches, ms per step and the
+    sharded env's set-up seconds (statics from the cache the parent
+    warmed)."""
+    from img_env_tpu_torch import BatchedNavEnv, EnvConfig
+    from img_env_tpu_torch.ops import kernels
+    from img_env_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    cfg = EnvConfig.from_dict(PRODUCTION)
+    t0 = time.perf_counter()
+    env = BatchedNavEnv(cfg, "cuda", seed=0, mesh=mesh)
+    env_s = time.perf_counter() - t0
+    blk = env.block(MESH_SCENES)
+    n = cfg.robot.total
+    # robot 0 of each scene beeps, so the beep draws matter
+    actions = torch.tensor([[0.4, 0.3, 1.0]] + [[0.5, -0.2, 0.0]] * (n - 1),
+                           device="cuda").expand(MESH_SCENES, n, 3)
+    states, obs = env.reset(MESH_SCENES)
+    seq, ms = [obs], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for _ in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        states, obs, _, _, _ = env.step(states, actions[blk])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        seq.append(obs)
+    launches = dict(kernels.LAUNCHES)
+    whole = BatchedNavEnv(cfg, "cuda", seed=0)
+    st_w, obs_w = whole.reset(MESH_SCENES)
+    errors = []
+    for t in range(MESH_STEPS + 1):
+        if t:
+            st_w, obs_w, _, _, _ = whole.step(st_w, actions)
+        e = {f: int((getattr(seq[t], f) != getattr(obs_w, f)[blk]).sum())
+             for f in MESH_BITEXACT}
+        e.update({f: float((getattr(seq[t], f).double()
+                            - getattr(obs_w, f)[blk].double()).abs().max())
+                  for f in MESH_VECTORS})
+        errors.append(e)
+    return {"block": [blk.start, blk.stop], "launches": launches, "ms": ms,
+            "errors": errors, "env_s": env_s,
+            "card": torch.cuda.get_device_name(0)}
+
+
+def _gather_samples(x, unroll: int, rows: slice, b_all: int, group):
+    """The global [T*B, ...] samples from this rank's [T*B_loc, ...]
+    (time-major; its robots are the global ``rows``): each rank's rows
+    written into zeros, summed over the ranks (exact)."""
+    import torch.distributed as dist
+
+    loc = x.reshape((unroll, -1) + tuple(x.shape[1:]))
+    full = loc.new_zeros((unroll, b_all) + tuple(x.shape[1:]))
+    full[:, rows] = loc
+    dist.all_reduce(full, group=group)
+    return full.reshape((unroll * b_all,) + tuple(x.shape[1:]))
+
+
+def mesh_update_rank() -> dict:
+    """15c, one rank: the stage-5 continuation sharded over the ranks (16
+    of its 32 scenes), one update.  Returns the loss's bits, whether the
+    loss and the updated parameters equal rank 0's bit for bit, the
+    worst ratio of the minibatch gradient (summed over the ranks) to the
+    error model around the one-process gradient of the same global
+    samples (gathered from the ranks), its leaf, and the seconds."""
+    import torch.distributed as dist
+
+    from img_env_tpu_torch.parallel.mesh import make_mesh
+    from img_env_tpu_torch.train import ppo
+
+    mesh = make_mesh()
+    group = mesh.get_group("scene")
+    r = stage5_update(mesh)
+    first = r["loss"].reshape(1).clone()
+    dist.broadcast(first, src=0, group=group)
+    flat = torch.cat([v.reshape(-1) for v in r["params"].values()])
+    flat0 = flat.clone()
+    dist.broadcast(flat0, src=0, group=group)
+    env, unroll = r["env"], r["unroll"]
+    n = env.cfg.robot.total
+    b_all = r["scenes"] * n
+    blk = env.block(r["scenes"])
+    rows = slice(blk.start * n, blk.stop * n)
+    feats, *rest = r["data"]
+    gather = lambda x: (None if x is None else
+                        _gather_samples(x, unroll, rows, b_all, group))
+    data = (tuple(gather(f) for f in feats), *(gather(x) for x in rest))
+    mb = ppo.take(data, r["idx"])
+    _, _, want = ppo.loss_and_grads(r["model"], r["params0"], mb, r["pcfg"])
+    sums = ppo.grad_term_sums(r["model"], r["params0"], mb, r["pcfg"])
+    ratios = ppo.grad_error_ratios(r["grads"], want, sums)
+    return {"loss": float(r["loss"]), "loss_hex": float(r["loss"]).hex(),
+            "loss_equal": bool(torch.equal(first, r["loss"].reshape(1))),
+            "params_equal": bool(torch.equal(flat, flat0)),
+            "grad_ratio": max(ratios.values()),
+            "grad_leaf": max(ratios, key=ratios.get),
+            "update_s": r["update_s"], "timings": r["timings"],
+            "block": [blk.start, blk.stop], "scenes": r["scenes"]}
+
+
+def run_ranks(fn: str, env=None):
+    """``chip_smoke.<fn>`` in MESH_RANKS spawned ranks (gloo: two ranks on
+    one card); raises with a failed rank's errors."""
+    from img_env_tpu_torch.parallel.distributed import spawn
+
+    runs = spawn(f"chip_smoke:{fn}", MESH_RANKS, backend="gloo",
+                 timeout_s=RANK_TIMEOUT_S, pg_timeout_s=RANK_PG_TIMEOUT_S,
+                 env=env)
+    for k, r in enumerate(runs):
+        if r.rc or r.result is None:
+            raise AssertionError(f"{fn}: rank {k} rc {r.rc}\n"
+                                 f"{r.out[-3000:]}\n{r.err[-6000:]}")
+    return [r.result for r in runs]
+
+
+def mesh_path():
+    """Phase 15: 15a (mesh of one), the statics' cold and warm seconds with
+    the cache on, 15b (the production batch sharded over two ranks), 15c
+    (a sharded PPO update over two ranks).  Returns what it measured."""
+    import shutil
+    import tempfile
+
+    from img_env_tpu_torch import EnvConfig, NavEnv
+    from img_env_tpu_torch.utils import statics_cache
+
+    t15 = time.perf_counter()
+    out = {}
+    out["one"], out["one_s"] = mesh_of_one_path()
+    torch.cuda.empty_cache()
+    cache = tempfile.mkdtemp(prefix="statics_cache_")
+    saved = os.environ.get(statics_cache.ENV_VAR)
+    os.environ[statics_cache.ENV_VAR] = cache
+    try:
+        out["statics_s"] = {}
+        for name, cfg_dict in (("bench200", BENCH200),
+                               ("production", PRODUCTION)):
+            secs = out["statics_s"][name] = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                NavEnv(EnvConfig.from_dict(cfg_dict))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        out["cache_files"] = sorted(os.listdir(cache))
+        torch.cuda.empty_cache()
+        out["batch"] = run_ranks("mesh_batch_rank",
+                                 {statics_cache.ENV_VAR: cache})
+    finally:
+        if saved is None:
+            os.environ.pop(statics_cache.ENV_VAR, None)
+        else:
+            os.environ[statics_cache.ENV_VAR] = saved
+        shutil.rmtree(cache, ignore_errors=True)
+    once = {"raster": 1, "fill": 2, "paint": 2, "pedmap": 1,
+            "paint_block": 0}
+    for k, r in enumerate(out["batch"]):
+        if r["block"] != [k * MESH_SCENES // MESH_RANKS,
+                          (k + 1) * MESH_SCENES // MESH_RANKS]:
+            raise AssertionError(f"mesh batch: rank {k} holds {r['block']}")
+        for t, e in enumerate(r["errors"]):
+            bad = {f: v for f, v in e.items()
+                   if (v > 0 if f in MESH_BITEXACT else v > 1e-12)}
+            if bad:
+                raise AssertionError(f"mesh batch: rank {k} step {t} "
+                                     f"differs from the unsharded batch "
+                                     f"{bad}")
+        if any(r["launches"][name] != c * MESH_STEPS
+               for name, c in once.items()):
+            raise AssertionError(f"mesh batch: rank {k} launched "
+                                 f"{r['launches']} in {MESH_STEPS} steps")
+    out["update"] = run_ranks("mesh_update_rank")
+    for k, r in enumerate(out["update"]):
+        if not (r["loss_equal"] and r["params_equal"]
+                and math.isfinite(r["loss"])):
+            raise AssertionError(f"mesh update: rank {k} {r}")
+        if not r["grad_ratio"] <= 1.0:
+            raise AssertionError(f"mesh update: rank {k} gradient at "
+                                 f"{r['grad_ratio']} of the error model "
+                                 f"({r['grad_leaf']})")
+    out["seconds"] = time.perf_counter() - t15
+    return out
+
+
+def report_mesh(ms) -> None:
+    """Logs what ``mesh_path`` measured."""
+    from img_env_tpu_torch.train import ppo
+
+    card = card_line()
+    log(f"# mesh of one (NCCL, world 1), stage-5 continuation at 32 scenes: "
+        f"the minibatch gradient, loss terms, update loss and parameters "
+        f"bit-equal to the update without a mesh (largest differences "
+        f"{json.dumps(ms['one'])}); update {ms['one_s'][0]:.3f} s with the "
+        f"mesh, {ms['one_s'][1]:.3f} s without; {card}")
+    log(f"# statics with IMG_ENV_TPU_STATICS_CACHE, NavEnv set-up cold / "
+        f"warm: " + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} s"
+                               for k, v in ms["statics_s"].items())
+        + f" (production: {MESH_SCENES // MESH_RANKS} of {MESH_SCENES} "
+        f"scenes a rank, 400x400 views, 960 beams, two sensor groups; "
+        f"entries {ms['cache_files']}); {card}")
+    for k, r in enumerate(ms["batch"]):
+        log(f"# mesh batch rank {k} of {MESH_RANKS} (gloo, scenes "
+            f"{r['block']}): sharded = unsharded bit for bit on "
+            f"{', '.join(MESH_BITEXACT)} and the vector fields within 1e-12 "
+            f"over reset + {MESH_STEPS} steps; ms per step "
+            f"{[round(x, 3) for x in r['ms']]} (host clock, synchronised); "
+            f"launches in {MESH_STEPS} steps {r['launches']}; env set-up "
+            f"{r['env_s']:.3f} s (warm cache); {card}")
+    for k, r in enumerate(ms["update"]):
+        log(f"# mesh update rank {k} of {MESH_RANKS} (gloo, scenes "
+            f"{r['block']} of {r['scenes']}): loss {r['loss']!r} ({r['loss_hex']}), "
+            f"equal to rank 0's: {r['loss_equal']}; parameters equal to rank "
+            f"0's: {r['params_equal']}; the all-reduced minibatch gradient "
+            f"({GRAD_SAMPLES} samples) at {r['grad_ratio']:.4f} of the "
+            f"error model around the one-process gradient (worst leaf "
+            f"{r['grad_leaf']}; {ppo.GRAD_REL} of the largest term sum + "
+            f"{ppo.GRAD_ABS}); update {r['update_s']:.3f} s "
+            f"({json.dumps({x: round(v, 3) for x, v in r['timings'].items()})}"
+            f"); {card}")
+    log(f"# phase 15: {ms['seconds']:.1f} s")
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2663,6 +3038,11 @@ def main() -> None:
     for name, ms in br["kernel_ms"].items():
         batch_ms[name]["barn100"] = ms
 
+    # ---- the mesh (phase 15): a mesh of one, the production batch and a
+    # PPO update sharded over two ranks on the one card ----
+    mesh_run = mesh_path()
+    report_mesh(mesh_run)
+
     src = "img_env_tpu_torch/csrc/"
     meta = {"raster": ("raster.cu", "img_env_tpu/ops/pallas_raster.py:105",
                        launches),
@@ -2681,7 +3061,10 @@ def main() -> None:
                 **{k: r.per_step for k, r in batch_runs.items()},
                 "eval bank50": ev["per_step"],
                 "train stage5": tr["per_step"],
-                "ilqr bench200": il["per_step"], "barn100": br["per_step"]}
+                "ilqr bench200": il["per_step"], "barn100": br["per_step"],
+                **{f"production 2 ranks, rank {k}": {
+                    name: c / MESH_STEPS for name, c in r["launches"].items()}
+                   for k, r in enumerate(mesh_run["batch"])}}
     rows = [{"name": name, "route": "cuda", "source": src + cu,
              "replaces": replaces, "launches": runs[name],
              "launches_per_step": {p: c[name] for p, c in per_step.items()},
@@ -2693,6 +3076,10 @@ def main() -> None:
              **({"subset_ms": checks["paint_subsets"]} if name == "paint"
                 else {})}
             for name, (cu, replaces, runs) in meta.items()]
+    import torch.distributed as dist
+
+    if dist.is_initialized():    # the world of one of phases 13 and 15
+        dist.destroy_process_group()
     log(card_line())
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

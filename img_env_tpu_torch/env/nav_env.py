@@ -78,6 +78,7 @@ from img_env_tpu_torch.ops import polar as polar_mod
 from img_env_tpu_torch.ops import raster
 from img_env_tpu_torch.ops.footprint import circle_points, rectangle_points
 from img_env_tpu_torch.ops.view import ViewParams, ViewStatics, own_view_cells
+from img_env_tpu_torch.utils import statics_cache as scache
 
 
 def _pad_clouds(clouds):
@@ -396,11 +397,19 @@ class NavEnv:
                 raise NotImplementedError(
                     "on CUDA the fill and painter always run their kernels; "
                     "fill_mode='gather' / paint_mode='xla' are CPU-only")
-        self.statics = st = build_statics(cfg)
+        # opt-in warm start: the statics are a pure function of (cfg, map,
+        # package source); IMG_ENV_TPU_STATICS_CACHE names a directory
+        # that keeps them across processes (utils/statics_cache.py)
+        self._cache_key = (
+            scache.cache_key(cfg, cfg.resolve_map_path())
+            if scache.cache_dir() else None)
+        self.statics = st = scache.cached(
+            self._cache_key and "st-" + self._cache_key,
+            lambda: build_statics(cfg), lambda x: isinstance(x, EnvStatics))
         raster.check_footprint_span(st.robot_points, st.resolution)
         dev = self.device
-        self.group_tables = tuple(self._group_tables(g)
-                                  for g in st.sensor_groups)
+        self.group_tables = tuple(self._group_tables(gi, g)
+                                  for gi, g in enumerate(st.sensor_groups))
         # XLA folds the JAX package's cos/sin of these constant float32
         # angles at compile time, correctly rounded: float64 cos/sin of the
         # float32 angle, rounded to float32
@@ -420,21 +429,28 @@ class NavEnv:
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
 
-    def _group_tables(self, g: SensorGroup) -> GroupTables:
-        """A sensor group's device tables: its polar tables with its robots'
-        self-stamp masks, and the painter's launch table (K5's 64-slot
-        blocks for paint_mode='block', K3's per-slot visit lists
-        otherwise), built from the group's parity or fast statics."""
+    def _group_tables(self, gi: int, g: SensorGroup) -> GroupTables:
+        """Sensor group ``gi``'s device tables: its polar tables with its
+        robots' self-stamp masks, and the painter's launch table (K5's
+        64-slot blocks for paint_mode='block', K3's per-slot visit lists
+        otherwise, through the statics cache), built from the group's
+        parity or fast statics."""
         dev = self.device
         own_mask = polar_mod.own_mask_sorted(g.polar, g.own_slots,
                                              g.own_slots_ok)
         painter = None
         if g.painter is not None:
             if self.cfg.paint_mode == "block":
-                layout = painter_mod.PaintBlocks.build(
+                kind, build = "kbl", lambda: painter_mod.PaintBlocks.build(
                     g.painter, self.statics.view_params.range_total)
+                cls = painter_mod.PaintBlocks
             else:
-                layout = painter_mod.PaintSlots.build(g.painter)
+                kind, build = "kst", lambda: painter_mod.PaintSlots.build(
+                    g.painter)
+                cls = painter_mod.PaintSlots
+            layout = scache.cached(
+                self._cache_key and f"{kind}{gi or ''}-{self._cache_key}",
+                build, lambda x: isinstance(x, cls))
             painter = painter_mod.make_painter_tables(g.painter, layout, dev)
         idx = torch.as_tensor(g.idx, dtype=torch.int64, device=dev)
         return GroupTables(

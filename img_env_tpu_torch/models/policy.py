@@ -20,6 +20,10 @@ It computes what the flax module computes, float32 throughout:
   * on a CUDA device cuDNN would round convolution inputs to TF32 by
     default: the forward runs with TF32 off for convolutions and matmuls.
 
+The forward is one body, ``policy_forward``, over its layers given as
+callables: the module passes its own, and the tensor-parallel forward
+(``parallel/tp.py``) its sharded ones.
+
 Weights come from the JAX package's checkpoints as flat float32 arrays
 keyed by flax path (``tools/export_policy_npz.py`` writes them):
 ``policy_params_from_numpy`` converts them to this module's state dict and
@@ -47,6 +51,8 @@ import torch.nn.functional as F
 from torch import nn
 
 Tensor = torch.Tensor
+# the crowd attention's heads (flax's CrowdAttention.heads)
+ATTN_HEADS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +106,8 @@ def _same_pads(size: int, stride: int = 2, k: int = 3) -> Tuple[int, int]:
 
 
 class ConvTrunk(nn.Module):
-    """HxWxC -> ``out`` feature vector, stride-2 downsampling."""
+    """HxWxC -> ``out`` feature vector, stride-2 downsampling (the layers;
+    ``conv_trunk`` is the forward)."""
 
     def __init__(self, in_ch: int, size: Tuple[int, int],
                  features: Sequence[int] = (32, 64, 64), out: int = 256):
@@ -115,23 +122,17 @@ class ConvTrunk(nn.Module):
             h, w, in_ch = -(-h // 2), -(-w // 2), f
         self.proj = nn.Linear(h * w * in_ch, out)
 
-    def forward(self, x: Tensor) -> Tensor:
-        for conv, pad in zip(self.convs, self.pads):
-            x = F.relu(conv(F.pad(x, pad)))
-        # flax flattens NHWC
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        return F.relu(self.proj(x))
-
 
 class CrowdAttention(nn.Module):
-    """One masked self-attention block over pedestrian tokens.
+    """One masked self-attention block over pedestrian tokens (the layers;
+    ``crowd_attention`` is the forward).
 
     Input is the reference ped_vector layout: [B, 1 + D*max_ped] where slot 0
     is the valid-ped count (yaml_env.py:449-458); invalid tokens are masked.
     """
 
     def __init__(self, max_ped: int, ped_vec_dim: int, dim: int = 64,
-                 heads: int = 4):
+                 heads: int = ATTN_HEADS):
         super().__init__()
         self.max_ped, self.ped_vec_dim = max_ped, ped_vec_dim
         self.heads = heads
@@ -142,26 +143,79 @@ class CrowdAttention(nn.Module):
         self.out = nn.Linear(dim, dim)
         self.mlp = nn.Linear(dim, dim)
 
-    def forward(self, ped_vec: Tensor) -> Tensor:
-        b, t = ped_vec.shape[0], self.max_ped
-        count = ped_vec[:, 0].to(torch.int32)
-        toks = ped_vec[:, 1:].reshape(b, t, self.ped_vec_dim)
-        mask = (torch.arange(t, device=ped_vec.device)[None, :]
-                < torch.clamp(count, max=t)[:, None])           # [B,T]
-        h = F.relu(self.embed(toks))
-        split = lambda x: x.reshape(b, t, self.heads, -1)
-        q, k, v = split(self.query(h)), split(self.key(h)), split(self.value(h))
-        q = q / math.sqrt(q.shape[-1])
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        logits = torch.where(mask[:, None, None, :], logits,
-                             torch.finfo(logits.dtype).min)
-        weights = torch.softmax(logits, dim=-1)
-        att = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, t, -1)
-        h = h + self.out(att)
-        h = F.relu(self.mlp(h))
-        # masked mean-pool; zero when no peds visible
-        w = mask.to(h.dtype)[..., None]
-        return (h * w).sum(1) / torch.clamp(w.sum(1), min=1.0)
+
+# The forward takes its layers as two callables, so that one body serves
+# the plain module and the tensor-parallel forward (``parallel/tp.py``):
+# ``linear(x, name)`` applies the Linear whose state-dict prefix is
+# ``name``; ``conv(x, name, pad)`` pads ``x`` by ``pad`` and applies the
+# stride-2 Conv ``name``.
+Linear = Callable[[Tensor, str], Tensor]
+Conv = Callable[[Tensor, str, Tuple[int, int, int, int]], Tensor]
+
+
+def conv_trunk(trunk: ConvTrunk, prefix: str, x: Tensor, linear: Linear,
+               conv: Conv) -> Tensor:
+    """``trunk``'s forward; its layers are named ``prefix.convs.i`` and
+    ``prefix.proj``."""
+    for i, pad in enumerate(trunk.pads):
+        x = F.relu(conv(x, f"{prefix}.convs.{i}", pad))
+    # flax flattens NHWC
+    x = x.permute(0, 2, 3, 1).flatten(1)
+    return F.relu(linear(x, f"{prefix}.proj"))
+
+
+def crowd_attention(attn: CrowdAttention, prefix: str, ped_vec: Tensor,
+                    linear: Linear) -> Tensor:
+    """``attn``'s forward; its layers are named ``prefix.<layer>``."""
+    b, t = ped_vec.shape[0], attn.max_ped
+    layer = lambda x, name: linear(x, f"{prefix}.{name}")
+    count = ped_vec[:, 0].to(torch.int32)
+    toks = ped_vec[:, 1:].reshape(b, t, attn.ped_vec_dim)
+    mask = (torch.arange(t, device=ped_vec.device)[None, :]
+            < torch.clamp(count, max=t)[:, None])               # [B,T]
+    h = F.relu(layer(toks, "embed"))
+    split = lambda x: x.unflatten(-1, (attn.heads, -1))
+    q, k, v = (split(layer(h, name)) for name in ("query", "key", "value"))
+    q = q / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    logits = torch.where(mask[:, None, None, :], logits,
+                         torch.finfo(logits.dtype).min)
+    weights = torch.softmax(logits, dim=-1)
+    att = torch.einsum("bhqk,bkhd->bqhd", weights, v).flatten(2)
+    h = h + layer(att, "out")
+    h = F.relu(layer(h, "mlp"))
+    # masked mean-pool; zero when no peds visible
+    w = mask.to(h.dtype)[..., None]
+    return (h * w).sum(1) / torch.clamp(w.sum(1), min=1.0)
+
+
+def policy_forward(model: "CrowdNavPolicy", linear: Linear, conv: Conv,
+                   log_std: Optional[Tensor], sensor_maps: Tensor,
+                   vector_states: Tensor, ped_maps: Optional[Tensor] = None,
+                   ped_vectors: Optional[Tensor] = None):
+    """``model``'s forward over the layers ``linear`` and ``conv`` (see
+    above) and the Gaussian head's ``log_std`` (None for a discrete
+    head): (mean, log_std, value) or (logits, value)."""
+    c = model.cfg
+    with full_float32():
+        feats = [conv_trunk(model.sensor_trunk, "sensor_trunk",
+                            sensor_maps.float(), linear, conv)]
+        v = vector_states.flatten(1).float()
+        feats.append(F.relu(linear(F.relu(linear(v, "vec0")), "vec1")))
+        if c.use_ped_map and ped_maps is not None:
+            feats.append(conv_trunk(model.ped_trunk, "ped_trunk",
+                                    ped_maps.float(), linear, conv))
+        if c.use_ped_vec and ped_vectors is not None:
+            feats.append(crowd_attention(model.crowd_attn, "crowd_attn",
+                                         ped_vectors.float(), linear))
+        x = torch.cat(feats, dim=-1)
+        x = F.relu(linear(x, "fuse0"))
+        x = F.relu(linear(x, "fuse1"))
+        value = linear(x, "value")[:, 0]
+        if c.discrete_actions > 0:
+            return linear(x, "pi_logits"), value
+        mean = linear(x, "pi_mean")
+        return mean, log_std.expand_as(mean), value
 
 
 class CrowdNavPolicy(nn.Module):
@@ -197,23 +251,12 @@ class CrowdNavPolicy(nn.Module):
     def forward(self, sensor_maps: Tensor, vector_states: Tensor,
                 ped_maps: Optional[Tensor] = None,
                 ped_vectors: Optional[Tensor] = None):
-        c = self.cfg
-        with full_float32():
-            feats = [self.sensor_trunk(sensor_maps.float())]
-            v = vector_states.reshape(vector_states.shape[0], -1).float()
-            feats.append(F.relu(self.vec1(F.relu(self.vec0(v)))))
-            if c.use_ped_map and ped_maps is not None:
-                feats.append(self.ped_trunk(ped_maps.float()))
-            if c.use_ped_vec and ped_vectors is not None:
-                feats.append(self.crowd_attn(ped_vectors.float()))
-            x = torch.cat(feats, dim=-1)
-            x = F.relu(self.fuse0(x))
-            x = F.relu(self.fuse1(x))
-            value = self.value(x)[:, 0]
-            if c.discrete_actions > 0:
-                return self.pi_logits(x), value
-            mean = self.pi_mean(x)
-            return mean, self.pi_log_std.expand_as(mean), value
+        layer = self.get_submodule
+        return policy_forward(
+            self, lambda x, name: layer(name)(x),
+            lambda x, name, pad: layer(name)(F.pad(x, pad)),
+            None if self.cfg.discrete_actions > 0 else self.pi_log_std,
+            sensor_maps, vector_states, ped_maps, ped_vectors)
 
 
 def example_inputs(cfg: PolicyConfig, batch: int = 8, device="cuda"):

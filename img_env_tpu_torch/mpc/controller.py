@@ -26,7 +26,7 @@ from img_env_tpu_torch.mpc.cost import CostWeights, WorldCost
 from img_env_tpu_torch.mpc.edt import edt2d
 from img_env_tpu_torch.mpc.ilqr import IlqrConfig, batched_ilqr
 from img_env_tpu_torch.mpc.mppi import MppiConfig, batched_mppi
-from img_env_tpu_torch.mpc.prediction import HEADS, predict_peds
+from img_env_tpu_torch.mpc.prediction import predict_peds
 
 OCCUPIED_THRESH = 250  # grid value < 250 is occupied (agent.cpp:394-401)
 
@@ -40,10 +40,6 @@ class MpcController:
                  weights: Optional[CostWeights] = None,
                  method: str = "mppi", ped_prediction: str = "cv",
                  seed: int = 0):
-        if ped_prediction not in HEADS:
-            raise NotImplementedError(
-                f"ped prediction head {ped_prediction!r} is not ported "
-                f"(only {HEADS})")
         self.ped_prediction = ped_prediction
         self.method = method
         self.env = env
@@ -155,7 +151,7 @@ class MpcController:
         pos, vel = states.peds.pos.to(dtype), states.peds.vel.to(dtype)
         vmax = env.crowd.max_speed.to(dtype)
         m = pos.shape[1]
-        if self.ped_prediction == "cv":
+        if self.ped_prediction not in ("orca", "sfm"):
             ped_traj = predict_peds("cv", pos.reshape(-1, 2),
                                     vel.reshape(-1, 2), vmax.repeat(s),
                                     horizon, dt)

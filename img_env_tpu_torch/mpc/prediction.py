@@ -21,8 +21,6 @@ import torch
 from img_env_tpu_torch.crowd import orca as orca_mod
 from img_env_tpu_torch.crowd import sfm as sfm_mod
 
-HEADS = ("cv", "orca", "sfm")
-
 
 def predict_cv(pos, vel, horizon: int, dt: float):
     """[H,M,2] constant-velocity extrapolation (M may be 0)."""
@@ -81,14 +79,13 @@ def predict_sfm(pos, vel, vmax, horizon: int, dt: float,
 
 def predict_peds(mode: str, pos, vel, vmax, horizon: int, dt: float,
                  orca_cfg=None, segments=None):
-    """Dispatch on the head. Returns [H,M,2] predicted positions.  The
-    'orca' head needs ``orca_cfg`` (the env's statics)."""
-    if mode not in HEADS:
-        raise NotImplementedError(
-            f"ped prediction head {mode!r} is not ported (only {HEADS})")
+    """Dispatch on the head. Returns [H,M,2] predicted positions.  'orca'
+    plans with ``orca_cfg`` (the env's statics); any other head than
+    'orca' with an ``orca_cfg`` or 'sfm' plans with 'cv', as the
+    reference does."""
     if pos.shape[0] == 0:
         return pos.new_zeros((horizon, 0, 2))
-    if mode == "orca":
+    if mode == "orca" and orca_cfg is not None:
         return predict_orca(pos, vel, vmax, horizon, orca_cfg, segments)
     if mode == "sfm":
         return predict_sfm(pos, vel, vmax, horizon, dt)

@@ -5,7 +5,7 @@
         [--unroll 16] [--lr 3e-4] [--epochs 2] [--minibatches 2]
         [--reward-scale 1.0] [--sigma0 -0.5] [--force-sigma S]
         [--ent-coef 0.01] [--curve PREFIX] [--save FILE] [--restore FILE]
-        [--seed 0] [--device cuda]
+        [--seed 0] [--device cuda] [--procs N] [--backend gloo|nccl]
 
 CFG is an env config as ``.json`` (the dict of a reference yaml, as
 ``img_env_tpu_torch/artifacts/stage5_policy_env.json`` stores it) or as
@@ -18,6 +18,14 @@ port's checkpoint (``--save`` writes one: ``{"params": ...}`` through
 ``pi_log_std``.  Every 5 updates it prints the loss, reward, arrive and
 collision rates, entropy and robot-steps/s; ``--curve PREFIX`` writes
 ``PREFIX.csv`` (update, reward_mean, arrive_rate, collision_rate).
+
+The run is under a [scene, model] mesh, as ``examples/train_ppo.py``'s:
+one rank by default (a world of one), ``--procs N`` ranks spawned on this
+host, or the ranks of torch's launcher (its ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` and ``MASTER_PORT``).  The ``--scenes`` shard over the
+ranks, which draw alike (``parallel/batched_env.py``) and sum their
+gradients; rank 0 prints and saves.  ``--backend gloo`` lets several
+ranks share one card (NCCL refuses that).
 """
 
 from __future__ import annotations
@@ -25,16 +33,20 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from img_env_tpu_torch.config import EnvConfig
 from img_env_tpu_torch.models.policy import (PolicyConfig, init_policy,
                                              policy_params_from_numpy)
+from img_env_tpu_torch.parallel import distributed
 from img_env_tpu_torch.parallel.batched_env import BatchedNavEnv
+from img_env_tpu_torch.parallel.mesh import make_mesh
 from img_env_tpu_torch.train import checkpoint as ckpt_mod
 from img_env_tpu_torch.train.ppo import PpoConfig, make_train_step
 
@@ -69,6 +81,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--restore", default=None,
                     help="warm-start params from a checkpoint file or a "
                          "JAX-exported .npz")
+    ap.add_argument("--procs", type=int, default=1,
+                    help="ranks to spawn on this host (scenes shard over "
+                         "them)")
+    ap.add_argument("--backend", default=None,
+                    help="process group backend (default: nccl with a card "
+                         "per rank, else gloo)")
     return ap.parse_args(argv)
 
 
@@ -116,15 +134,17 @@ def restore_params(path: str, params: dict) -> dict:
 
 def train(args: argparse.Namespace, cfg: Optional[EnvConfig] = None,
           log: Callable[[str], None] = print) -> dict:
-    """The training run of ``args`` (``cfg`` in place of ``args.cfg``).
-    Returns {"history": rows of (update, reward_mean, arrive_rate,
-    collision_rate), "metrics": each update's metrics (device scalars),
-    "timings": each update's host seconds of its rollout, autoreset and
-    update, "ts", "states", "obs", "env", "model", "train_step",
-    "generator"}."""
+    """The training run of ``args`` (``cfg`` in place of ``args.cfg``)
+    under a mesh of the process group's ranks (``make_mesh``: a world of
+    one unless ranks were started).  Returns {"history": rows of (update,
+    reward_mean, arrive_rate, collision_rate), "metrics": each update's
+    metrics (device scalars), "timings": each update's host seconds of its
+    rollout, autoreset and update, "ts", "states", "obs", "env", "model",
+    "train_step", "generator"}."""
     cfg = cfg or load_config(args.cfg, args.robots, args.peds)
     dev = torch.device(args.device)
-    env = BatchedNavEnv(cfg, dev, seed=args.seed + 1)
+    mesh = make_mesh(device_type=dev.type)
+    env = BatchedNavEnv(cfg, dev, seed=args.seed + 1, mesh=mesh)
     pcfg = dataclasses.replace(PolicyConfig.from_env_config(cfg),
                                log_std_init=args.sigma0)
     gen = torch.Generator(device=dev)
@@ -176,10 +196,10 @@ def train(args: argparse.Namespace, cfg: Optional[EnvConfig] = None,
     log(f"reward first-{k} mean {h[:k, 1].mean():.3f} -> "
         f"last-{k} mean {h[-k:, 1].mean():.3f}; "
         f"arrive {h[:k, 2].mean():.2f} -> {h[-k:, 2].mean():.2f}")
-    if args.save:
+    if args.save and dist.get_rank() == 0:
         ckpt_mod.save(args.save, {"params": ts.params})
         log(f"saved params checkpoint to {args.save}")
-    if args.curve:
+    if args.curve and dist.get_rank() == 0:
         np.savetxt(args.curve + ".csv", h, delimiter=",", comments="",
                    header="update,reward_mean,arrive_rate,collision_rate")
         log(f"wrote {args.curve}.csv")
@@ -188,8 +208,34 @@ def train(args: argparse.Namespace, cfg: Optional[EnvConfig] = None,
             "train_step": train_step, "generator": gen}
 
 
+def rank_main(argv) -> None:
+    """One of ``--procs`` spawned ranks: the run, printed by rank 0."""
+    args = parse_args(argv)
+    train(args, log=print if dist.get_rank() == 0 else lambda s: None)
+
+
 def main(argv=None) -> None:
-    train(parse_args(argv))
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    if args.procs > 1:
+        runs = distributed.spawn("img_env_tpu_torch.train.run:rank_main",
+                                 args.procs, [argv], backend=args.backend)
+        sys.stdout.write("".join(
+            line + "\n" for line in runs[0].out.splitlines()
+            if not line.startswith(distributed.RESULT)))
+        failed = [(k, r) for k, r in enumerate(runs) if r.rc]
+        for k, r in failed:
+            sys.stderr.write(f"--- rank {k} rc {r.rc}\n{r.err}")
+        if failed:
+            raise SystemExit(1)
+    else:
+        distributed.initialize(backend=args.backend)
+        try:
+            train(args, log=print if not dist.is_initialized()
+                  or dist.get_rank() == 0 else lambda s: None)
+        finally:
+            if dist.is_initialized():    # train's world of one, or ranks'
+                dist.destroy_process_group()
     print("done")
 
 

@@ -212,5 +212,8 @@ def test_predict_sfm_and_cv(x64):
     tol = 1e-9 if x64 else 1e-5
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=tol)
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), atol=tol)
-    with pytest.raises(NotImplementedError):
-        prediction.predict_peds("lstm", T(pos), T(vel), T(vmax), h, 0.4)
+    # any other head, and 'orca' without an orca_cfg, plans with 'cv', as
+    # the reference does (img_env_tpu/mpc/prediction.py:84-94)
+    for head in ("lstm", "orca"):
+        got = prediction.predict_peds(head, T(pos), T(vel), T(vmax), h, 0.4)
+        assert torch.equal(got, got_c), head

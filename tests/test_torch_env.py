@@ -198,14 +198,15 @@ def test_state_roundtrip(envs):
     {"sensor_mode": "reference"},
     {"sensor_mode": "reference", "use_laser": False},
     {"sensor_mode": "reference", "num_scenes": 2},
-    {"num_scenes": 2, "mesh": True},
+    {"sensor_mode": "reference", "num_scenes": 2, "mesh": True},
 ])
 def test_unported_options_raise(override):
     """What the port does not run raises: the per-robot gather sensor mode
-    (in the single env and in a scene batch) and a device mesh over the
-    scenes.  Fast mode, use_laser=False, num_scenes and sensor groups run
-    (tests/test_torch_fast_mode.py, test_torch_multiscene.py,
-    test_torch_hetero_sensors.py)."""
+    (in the single env, in a scene batch and in a batch sharded over a
+    mesh).  Fast mode, use_laser=False, num_scenes, sensor groups and a
+    device mesh over the scenes run (tests/test_torch_fast_mode.py,
+    test_torch_multiscene.py, test_torch_hetero_sensors.py,
+    test_torch_multidev.py)."""
     from img_env_tpu_torch.parallel import BatchedNavEnv
 
     d = small_cfg_dict()

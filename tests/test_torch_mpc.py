@@ -240,11 +240,36 @@ def test_act_with_orca_head_and_segments_matches_jax(x64):
 
 
 def test_unported_prediction_head_raises():
-    """A prediction head the port lacks raises; every ``method`` builds
-    (the reference plans 'cem' with MPPI: ROADMAP F23)."""
-    env_t = NavEnv(EnvConfig.from_dict(ped_cfg_dict()), "cpu")
-    with pytest.raises(NotImplementedError):
-        MpcController(env_t, ped_prediction="sgan")
+    """A head other than 'orca' or 'sfm' ('sgan') plans with 'cv', as the
+    reference does (F24): its act equals the port's 'cv' act bit for bit
+    and the JAX package's 'sgan' act within the float32 tolerances; every
+    ``method`` builds (the reference plans 'cem' with MPPI: ROADMAP F23)."""
+    d = ped_cfg_dict(n_rob=3, n_ped=2)
+    tol = TOLS[False]
+    with jax.enable_x64(False):
+        env_j = JaxNavEnv(JaxEnvConfig.from_dict(d))
+        ctl_j = JaxMpc(env_j, jmppi.MppiConfig(horizon=H, samples=K),
+                       ped_prediction="sgan")
+        state_j, _ = env_j.reset(jax.random.PRNGKey(11))
+        for _ in range(2):
+            state_j, *_ = env_j.step(state_j, np.tile(
+                np.asarray([[0.3, 0.2, 0.0]]), (3, 1)))
+        key = jax.random.PRNGKey(12)
+        noise = np.array(_jax_noise(key, 3))
+        a_j, _, _ = jax.jit(ctl_j.act_fn)(key, state_j, ctl_j.init_state())
+    env_t = NavEnv(EnvConfig.from_dict(d), "cpu")
+    state_t = world_state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, state_j))
+    acts = {}
+    for head in ("sgan", "cv"):
+        ctl_t = MpcController(env_t, mppi.MppiConfig(horizon=H, samples=K),
+                              ped_prediction=head)
+        acts[head] = ctl_t.act_fn(
+            state_t, MpcState(torch.zeros((3, H, 2), dtype=torch.float32)),
+            torch.as_tensor(noise))[0]
+    assert torch.equal(acts["sgan"], acts["cv"])
+    np.testing.assert_allclose(acts["sgan"].numpy(), np.asarray(a_j),
+                               atol=tol["act"], rtol=0)
     for method in ("mppi", "cem", "ilqr"):
         assert MpcController(env_t, method=method).method == method
 

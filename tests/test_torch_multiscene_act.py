@@ -73,8 +73,29 @@ def test_per_scene_static_maps():
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        BatchedNavEnv(port_cfg(CASES[2]), "cpu", mesh=object())
+    """The mesh is ported: a batch over a mesh of one rank (a gloo world
+    of one) equals the unsharded batch bit for bit after a reset and a
+    step (two ranks: tests/test_torch_multidev.py)."""
+    import torch.distributed as dist
+
+    from img_env_tpu_torch.parallel.mesh import make_mesh
+
+    started = not dist.is_initialized()
+    try:
+        cfg = port_cfg(CASES[2])
+        envs = [BatchedNavEnv(cfg, "cpu", seed=3, mesh=m)
+                for m in (make_mesh(device_type="cpu"), None)]
+        outs = []
+        for env in envs:
+            states, obs = env.reset(2)
+            actions = torch.full((2, cfg.robot.total, 3), 0.3)
+            outs.append((obs, env.step(states, actions)[1]))
+        for got, want in zip(*outs):
+            for f in OBS_FIELDS:
+                assert torch.equal(getattr(got, f), getattr(want, f)), f
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------

@@ -7,7 +7,10 @@ scene-batched act; and the serving path: ``make_env`` on a dict, one
 ``evaluate_batched`` episode and the committed stage-5 policy through
 ``load_policy_npz``; and the training path: one PPO update of a fresh
 policy on a scene batch with SFM peds, its checkpoint saved and restored,
-and ``train.run``'s warm start from the committed npz."""
+and ``train.run``'s warm start from the committed npz; and the mesh
+(``parallel.mesh``, ``parallel.distributed``, ``parallel.tp``,
+``parallel.dryrun``) with ``core.frames``, ``utils.statics_cache`` and
+``utils.debug``."""
 
 import json
 import os
@@ -207,6 +210,60 @@ MPC_BARN_SCRIPT = textwrap.dedent("""
 """)
 
 
+MESH_SCRIPT = textwrap.dedent("""
+    import json
+    import os
+    import sys
+    import tempfile
+    BLOCKED = ("jax", "jaxlib", "img_env_tpu", "cv2", "PIL", "yaml",
+               "flax", "orbax", "optax")
+    for name in BLOCKED:
+        sys.modules[name] = None          # any import of them now fails
+
+    import torch
+    from img_env_tpu_torch import BatchedNavEnv, EnvConfig
+    from img_env_tpu_torch.core import frames
+    from img_env_tpu_torch.models.policy import (PolicyConfig, example_inputs,
+                                                 init_policy)
+    from img_env_tpu_torch.parallel import distributed, dryrun, mesh, tp
+    from img_env_tpu_torch.train import PpoConfig, make_train_step
+    from img_env_tpu_torch.utils import statics_cache
+    from img_env_tpu_torch.utils.debug import nan_debug
+
+    os.environ[statics_cache.ENV_VAR] = tempfile.mkdtemp()
+    assert not distributed.initialize()
+    m = mesh.make_mesh(device_type="cpu")
+    cfg = EnvConfig.from_dict(json.loads(sys.argv[1]))
+    env = BatchedNavEnv(cfg, "cpu", mesh=m)
+    states, obs = env.reset(2)
+    assert mesh.shard_scenes(m, torch.arange(2)).tolist() == [0, 1]
+    seeds = distributed.process_local_batch(m, (2,), torch.arange(2))
+    assert seeds.to_local().tolist() == [0, 1]
+    gen = torch.Generator().manual_seed(0)
+    model, params = init_policy(gen, PolicyConfig.from_env_config(cfg),
+                                "cpu")
+    init_fn, train_step = make_train_step(env, model, PpoConfig(unroll=2))
+    with nan_debug():
+        ts, states, obs, met = train_step(init_fn(params), states, obs, gen)
+    assert int(ts.step) == 1 and bool(torch.isfinite(met["loss"]))
+    plan = mesh.tp_param_shardings(params, m)
+    assert mesh.tp_sharded_fraction(params, plan) == 0.0
+    out = tp.tp_forward(model, params, plan, m.get_group("model"),
+                        *example_inputs(model.cfg, 2, "cpu"))
+    assert out[0].shape == (2, cfg.act_dim)
+    pose = torch.tensor([[1.0, 2.0, 0.5]])
+    pts = frames.apply_se2(pose, torch.tensor([[[0.5, 0.0]]]))
+    assert torch.allclose(frames.world_to_base(pose, pts),
+                          torch.tensor([[[0.5, 0.0]]]), atol=1e-6)
+    assert len(os.listdir(os.environ[statics_cache.ENV_VAR])) >= 1
+    dryrun.worker("cpu")
+    leaked = [m for m in sys.modules if sys.modules[m] is not None
+              and m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("port-ok")
+""")
+
+
 def _run(cfg_dict, head="cv", scenes=None, script=SCRIPT):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -269,3 +326,10 @@ def test_mpc_engine_and_barn_without_jax_cv2_pil_yaml():
     generated BARN worlds through both suites (the batched one planning
     with the goal-field MPPI)."""
     _run(small_cfg_dict(), script=MPC_BARN_SCRIPT)
+
+
+def test_port_mesh_training_and_library_without_jax():
+    """A mesh of one: the sharded env, one PPO update under the NaN trap,
+    the tensor-parallel plan and forward, frames, the statics cache, and
+    the dryrun's rank function."""
+    _run(ped_cfg_dict(), script=MESH_SCRIPT)

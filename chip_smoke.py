@@ -106,6 +106,26 @@ beep_r 1.0 and ped_ca_p 0.8 as in img_env_tpu/configs/ervo_crowd.yaml):
      stage-5 continuation sharded over the two ranks (16 scenes each):
      the loss and the parameters equal on both, the summed gradient
      within the error model of the one-process gradient.
+ 16. the papers' experiment matrix, the frontends and the drivers: one
+     ORCA cell's control step timed (part B's rvoscene cell of the
+     stage-5 policy over bank50's 50 scenes); part C's two cells (the
+     ERVO policy, img_env_tpu_torch/artifacts/ervo_policy.npz, on
+     ervoscene over the 50 scenes, beep on and forced off) through
+     ``eval.experiment_matrix.run_cell``, reduced to MATRIX_STEPS control
+     steps: K1-K4 once a step and K5 never, robot beeps with beep on and
+     none with it off, the indicator table of the recorders without
+     matplotlib, render_frame / render_tiles / compose_gui of the card's
+     state equal to the CPU's, ms per control step, device operations,
+     busy ms and idle share; ``make_env`` with 'gazebo_env' over a numpy
+     unicycle among circles (scans cast on the host) and with 'real_env'
+     fed scans, poses and tracked peds, each under the stage-5 config's
+     wrapper stack, on the card with every observation (the log-polar
+     sensor map included) equal to the CPU's: the stage-5 policy for
+     FRONTEND_STEPS steps, its actions within POLICY_TOL (it turns in
+     place), then scripted episodes that end by the min laser, a contact
+     and arrival (done codes 1, 1, 5; real_env: 5); and
+     ``eval.evaluate --batch --policy ckpt`` and ``examples.run_mpc
+     --render`` at a few steps, the PNG read back by the map loader.
 
 Each path's launch counts are set to 0 just before it and read just after
 (per control step: the reset's launches left out).  Any failed phase
@@ -2711,6 +2731,555 @@ def report_mesh(ms) -> None:
     log(f"# phase 15: {ms['seconds']:.1f} s")
 
 
+# ---- phase 16: the papers' experiment matrix at full width, the hardware
+# and external-simulator frontends, the remaining drivers ----
+
+MATRIX_STEPS = 20           # 16a's `reduced`: control steps of each cell
+ORCA_STEPS = 5              # timed control steps of one ORCA cell
+FRONTEND_STEPS = 30         # 16b: stage-5 policy steps on each frontend
+
+
+class StepProbe:
+    """Instruments the evaluator of ``experiment_matrix.run_cell`` without
+    touching it: the checkpoint's policy_fn is wrapped in a
+    ``CountingPolicy`` (ms per control step, the launch counts at the
+    reset) and ``BatchedNavEnv.step`` sums the robots' beep flags on the
+    card (read once, at the end) and keeps the last env, states and
+    observation."""
+
+    def __init__(self):
+        self.policy = None
+        self.env = self.states = self.obs = None
+        self.beeps = None
+
+    def __enter__(self):
+        from img_env_tpu_torch.models import policy as pol_mod
+        from img_env_tpu_torch.parallel.batched_env import BatchedNavEnv
+
+        self._load, self._step = pol_mod.load_ckpt_policy, BatchedNavEnv.step
+        probe = self
+
+        def load(*a, **k):
+            fn, policy = probe._load(*a, **k)
+            probe.policy = CountingPolicy(fn)
+            return probe.policy, policy
+
+        def step(env, states, actions, beep_u=None):
+            out = probe._step(env, states, actions, beep_u)
+            n = out[0].robots.beep.sum()
+            probe.beeps = n if probe.beeps is None else probe.beeps + n
+            probe.env, probe.states, probe.obs = env, out[0], out[1]
+            return out
+
+        pol_mod.load_ckpt_policy, BatchedNavEnv.step = load, step
+        return self
+
+    def __exit__(self, *exc):
+        from img_env_tpu_torch.models import policy as pol_mod
+        from img_env_tpu_torch.parallel.batched_env import BatchedNavEnv
+
+        pol_mod.load_ckpt_policy, BatchedNavEnv.step = self._load, self._step
+
+
+def probed_cell(cfg_dict, ckpt, bank, steps, **kw):
+    """``run_cell`` of a checkpoint over the bank's 50 scenes for ``steps``
+    control steps, under a ``StepProbe``; returns (cell output, probe,
+    launches per control step, ms per control step)."""
+    from img_env_tpu_torch.eval import experiment_matrix as em
+    from img_env_tpu_torch.ops import kernels
+
+    with StepProbe() as probe:
+        kernels.reset_launch_counts()
+        out = em.run_cell(cfg_dict, "ckpt", bank, EVAL_EPISODES, ckpt=ckpt,
+                          max_steps=steps, **kw)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    fn = probe.policy
+    per_step = {k: (v - fn.at_first[k]) / fn.calls
+                for k, v in kernels.LAUNCHES.items()}
+    return out, probe, per_step, (t_end - fn.t_first) / fn.calls * 1e3
+
+
+def check_render(probe, cfg) -> int:
+    """render_frame, render_tiles and compose_gui of a beeping scene of the
+    card's last state equal the same functions of that state moved to the
+    CPU; returns the scene drawn."""
+    from img_env_tpu_torch.core.state import map_tree
+    from img_env_tpu_torch.eval.live_view import compose_gui
+    from img_env_tpu_torch.eval.render import render_frame, render_tiles
+
+    statics = probe.env.core.statics
+    beeping = probe.states.robots.beep.any(-1).nonzero().flatten()
+    k = int(beeping[0]) if beeping.numel() else 0
+    card = map_tree(lambda x: x[k], probe.states)
+    host = map_tree(lambda x: x.cpu(), card)
+    maps = probe.obs.sensor_maps[k]
+    for name, got, want in (
+            ("render_frame", render_frame(card, statics,
+                                          beep_radius=cfg.beep_r),
+             render_frame(host, statics, beep_radius=cfg.beep_r)),
+            ("render_tiles", render_tiles(maps), render_tiles(maps.cpu())),
+            ("compose_gui", compose_gui(card, statics, maps, cfg),
+             compose_gui(host, statics, maps.cpu(), cfg))):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"16a: {name} of the card's state != the "
+                                 f"CPU's")
+    return k
+
+
+def matrix_path() -> dict:
+    """16a: one ORCA cell's control step timed (part B's rvoscene cell of
+    the stage-5 policy), then part C's two cells (the ERVO checkpoint on
+    ervoscene over bank50's 50 scenes, beep on and forced off) through
+    ``experiment_matrix.run_cell`` for MATRIX_STEPS control steps: K1-K4
+    once a step, the beeps, the indicator table without matplotlib, the
+    renderers card = CPU, ms per control step and the idle share."""
+    import shutil
+    import tempfile
+
+    from img_env_tpu_torch import EnvConfig, ScenarioBank, mean_action_fn
+    from img_env_tpu_torch.config import read_config
+    from img_env_tpu_torch.eval import experiment_matrix as em
+    from img_env_tpu_torch.eval import plots
+
+    bank = ScenarioBank.load(BANK50)
+    ervo = read_config(em.ERVO_CFG)
+    res = {}
+    (s_orca, _), _, per_orca, ms_orca = probed_cell(
+        em.crowd_variant(ervo, "rvoscene", 2), em.STAGE5, bank, ORCA_STEPS)
+    res["orca"] = dict(ms_step=ms_orca, per_step=per_orca, summary=s_orca)
+    recs = {}
+    for beep, off in (("on", False), ("off", True)):
+        (summary, dones, rec), probe, per_step, ms = probed_cell(
+            ervo, em.ERVO, bank, MATRIX_STEPS, force_beep_off=off,
+            record=True)
+        beeps = int(probe.beeps)
+        if dones.shape != (EVAL_EPISODES, 1):
+            raise AssertionError(f"16a: dones_info shape {dones.shape}")
+        for k in ("raster", "fill", "paint", "pedmap"):
+            if per_step[k] != 1.0:
+                raise AssertionError(f"16a beep {beep}: {k} launched "
+                                     f"{per_step[k]} times a step")
+        if per_step["paint_block"]:
+            raise AssertionError("16a: K5 launched")
+        if (beeps == 0) if beep == "on" else (beeps != 0):
+            raise AssertionError(f"16a beep {beep}: {beeps} robot beeps")
+        if len(rec.episodes) != EVAL_EPISODES or len(
+                rec.episodes[0].robot_poses) != probe.policy.calls:
+            raise AssertionError("16a: the recorder's episodes")
+        recs[f"beep {beep}"] = rec
+        res[beep] = dict(summary=summary, per_step=per_step, ms_step=ms,
+                         beeps=beeps, steps=probe.policy.calls,
+                         policy_share=probe.policy.seconds
+                         / (ms * probe.policy.calls / 1e3))
+        if beep == "on":
+            cfg = EnvConfig.from_dict(ervo)
+            res["render_scene"] = check_render(probe, cfg)
+            policy_fn = mean_action_fn(load_ervo("cuda"), cfg)
+            benv, states, obs = probe.env, probe.states, probe.obs
+
+            def control_step():
+                nonlocal states, obs
+                a = policy_fn(None, obs)
+                states, obs, *_ = benv.step(states, a)
+                for x in (obs.is_collisions, obs.is_arrives,
+                          obs.ped_min_dists):
+                    x.cpu()
+
+            res["ops"], res["busy_ms"] = device_profile(control_step)
+            res["idle_share"] = 1.0 - res["busy_ms"] / ms
+    out_dir = tempfile.mkdtemp(prefix="matrix16a_")
+    try:
+        rows = {name: plots.per_robot_indicators(r)["all"]
+                for name, r in recs.items()}
+        table = plots.compare_methods(recs, out_dir, figures=False)
+        if table != rows or os.listdir(out_dir) != ["comparison.csv"]:
+            raise AssertionError("16a: the comparison table")
+        with open(os.path.join(out_dir, "comparison.csv")) as f:
+            res["table_csv"] = f.read().strip().replace("\n", " | ")
+    finally:
+        shutil.rmtree(out_dir)
+    if "matplotlib" in sys.modules:
+        raise AssertionError("16a: the table imported matplotlib")
+    return res
+
+
+def load_ervo(device):
+    from img_env_tpu_torch import EnvConfig, load_policy_npz
+    from img_env_tpu_torch.config import read_config
+    from img_env_tpu_torch.eval import experiment_matrix as em
+
+    return load_policy_npz(em.ERVO, EnvConfig.from_dict(
+        read_config(em.ERVO_CFG)), device)
+
+
+class CircleSim:
+    """A numpy unicycle among circle obstacles with two tracked peds: the
+    external simulator of 16b.  Scans (``n_beams`` over the full circle)
+    are cast on the host against CIRCLES; LOW is a kerb below the scan
+    plane that only the bumper feels.  A command moves the robot one
+    control period; a robot disc of ROBOT_R that then overlaps a circle or
+    the kerb counts a contact, and a teleport clears the count.
+    ``clearance`` (the least gap to a scanned circle's edge) and
+    ``on_kerb`` keep the last move's ground truth."""
+
+    CIRCLES = np.asarray([[2.0, -0.7, 0.3], [2.6, 1.1, 0.25],
+                          [3.6, 0.2, 0.35], [1.2, 1.6, 0.2],
+                          [4.4, 2.2, 0.3], [0.8, -1.5, 0.4]])
+    LOW = np.asarray([[0.0, -1.0, 0.15]])
+    ROBOT_R = 0.17
+
+    def __init__(self, n_beams: int, dt: float):
+        from img_env_tpu_torch.env.hardware_env import ScanSample, TrackedPed
+
+        self.scan_cls, self.ped_cls = ScanSample, TrackedPed
+        self.n_beams, self.dt = n_beams, dt
+        self.pose = np.zeros(3)
+        self.t = 0
+        self.contacts = 0
+        self.clearance, self.on_kerb = math.inf, False
+
+    def set_model_state(self, x, y, yaw):
+        self.pose = np.asarray([x, y, yaw], np.float64)
+        self.contacts = 0
+
+    def get_model_state(self):
+        return tuple(self.pose)
+
+    def send_cmd(self, v, w):
+        x, y, th = self.pose
+        self.pose = np.asarray([x + v * math.cos(th) * self.dt,
+                                y + v * math.sin(th) * self.dt,
+                                th + w * self.dt])
+
+        def gap(c):
+            return np.hypot(*(c[:, :2] - self.pose[:2]).T) - c[:, 2]
+
+        self.clearance = float(gap(self.CIRCLES).min())
+        self.on_kerb = bool((gap(self.LOW) < self.ROBOT_R).any())
+        if self.clearance < self.ROBOT_R or self.on_kerb:
+            self.contacts += 1
+        self.t += 1
+
+    def get_contact(self):
+        c = self.contacts > 0
+        self.contacts = 0
+        return c
+
+    def get_scan(self):
+        ang = -math.pi + 2 * math.pi * np.arange(self.n_beams) / self.n_beams
+        wa = ang + self.pose[2]
+        dirs = np.stack([np.cos(wa), np.sin(wa)], -1)          # [R, 2]
+        rel = self.CIRCLES[:, :2] - self.pose[:2]              # [C, 2]
+        b = dirs @ rel.T                                       # [R, C]
+        c = (rel ** 2).sum(-1) - self.CIRCLES[:, 2] ** 2
+        disc = b ** 2 - c
+        hit = b - np.sqrt(np.maximum(disc, 0.0))
+        hit = np.where((disc >= 0) & (hit > 0), hit, np.inf)
+        return self.scan_cls(ranges=hit.min(-1), angle_min=-math.pi,
+                             angle_increment=2 * math.pi / self.n_beams)
+
+    def get_peds(self):
+        s = 0.1 * self.t
+        return [self.ped_cls((1.5 + s, 0.4), (0.4, 0.0)),
+                self.ped_cls((3.0, 2.0 - s), (0.0, -0.4))]
+
+    def feed(self, hw) -> None:
+        """Hand the scan, the pose and the tracked peds to a real_env."""
+        hw.feed_scan(self.get_scan())
+        hw.feed_pose(*self.get_model_state())
+        hw.feed_peds(self.get_peds())
+
+
+# 16b's scripted episodes: (name, the done code they must end with, legs of
+# (waypoint, how far short of it to stop)).  'min laser' heads for 0.13 m
+# from a scanned circle's edge, inside the laser threshold (robot_radius,
+# 0.17 m);
+# 'contact' runs onto the kerb, which the scan does not see; 'arrival'
+# drives round the circles to within the frontend's goal radius (1 m for
+# gazebo_env, 0.3 m for real_env).  The frontends emit 0, 1 and 5 only,
+# in both packages: codes 2 and 3 are the simulator's ped and robot
+# contacts.
+ARRIVAL_LEGS = (((1.5, 0.3), 0.0), ((3.1, 0.65), 0.0), ((3.4, 1.0), 0.0),
+                ((4.0, 1.5), 0.0))
+SCRIPTS = {
+    "gazebo_env": (("min laser", 1, (((2.0, -0.7), 0.43),)),
+                   ("contact", 1, (((0.0, -1.0), 0.25),)),
+                   ("arrival", 5, ARRIVAL_LEGS)),
+    "real_env": (("arrival", 5, ARRIVAL_LEGS),),
+}
+SCRIPT_MAX_STEPS = 80       # per scripted episode
+
+
+def drive_cmd(pose, target, stop: float, dt: float):
+    """The scripted driver's (v, w): turn in place toward ``target`` until
+    the heading is within 0.05 rad, then drive so that the step ends
+    ``stop`` m short of it, within the stage-5 action box (v in [0, 0.6],
+    w in [-0.9, 0.9])."""
+    dx, dy = target[0] - pose[0], target[1] - pose[1]
+    err = math.atan2(dy, dx) - pose[2]
+    err = math.atan2(math.sin(err), math.cos(err))
+    w = max(-0.9, min(0.9, err / dt))
+    if abs(err) > 0.05:
+        return 0.0, w
+    return max(0.0, min(0.6, (math.hypot(dx, dy) - stop) / dt)), w
+
+
+def frontend_pair(kind: str, raw: dict):
+    """The stage-5 config with ``env_type`` switched, its wrapper stack over
+    a frontend on the card and one on the CPU, each fed by its own
+    CircleSim: ((card env, card sim), (CPU env, CPU sim)).  The frontends'
+    vector state is the goal in the base frame and the relative yaw
+    (``state_goal``), 3 wide in both packages (F28), so ``state_dim`` is
+    3."""
+    from img_env_tpu_torch import make_env
+    from img_env_tpu_torch.env.external_env import ExternalSimTransport
+
+    d = dict(raw, env_type=kind, state_dim=3,
+             start_global_pose=[0.0, 0.0, 0.0],
+             target_global_pose=[4.0, 1.5])
+    pairs = []
+    for device in ("cuda", "cpu"):
+        sim = CircleSim(int(raw["range_total"]), float(raw["control_hz"]))
+        if kind == "gazebo_env":
+            env = make_env(d, device=device, transport=ExternalSimTransport(
+                get_scan=sim.get_scan, get_model_state=sim.get_model_state,
+                set_model_state=sim.set_model_state, send_cmd=sim.send_cmd,
+                get_contact=sim.get_contact, get_peds=sim.get_peds))
+            env.env.real_time = False
+        else:
+            box = {}
+
+            def send(v, w, sim=sim, box=box):
+                sim.send_cmd(v, w)
+                sim.feed(box["hw"])
+
+            env = make_env(d, device=device, send_cmd=send)
+            box["hw"] = env.env
+            env.env.set_goal(4.0, 1.5)
+            sim.feed(env.env)
+        pairs.append((env, sim))
+    return pairs
+
+
+def _same(a, b) -> bool:
+    """Equal nested dicts / sequences / tensors / arrays (NaN = NaN)."""
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+    a, b = np.asarray(a), np.asarray(b)
+    return np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+
+
+def step_pair(what: str, env_g, env_c, action: np.ndarray) -> int:
+    """One step of the card's and the CPU's frontend on the same action:
+    the step's outputs and then the observations (raw and filtered) must
+    be equal.  Returns the step's done code."""
+    out_g, out_c = env_g.step(action), env_c.step(action)
+    if not _same(out_g[1:], out_c[1:]):
+        raise AssertionError(f"16b {what}: step outputs differ")
+    if not (_same(out_g[0], out_c[0])
+            and _same(env_g.last_raw_obs, env_c.last_raw_obs)):
+        raise AssertionError(f"16b {what}: observations differ")
+    return int(out_g[3]["dones_info"][0])
+
+
+def scripted_episodes(kind: str, pairs) -> list:
+    """16b's SCRIPTS on one frontend pair: each episode from the start pose
+    (a reset; real_env's robot is put back there first), driven by
+    ``drive_cmd`` on the card sim's pose with the card and the CPU held
+    equal at every step, must end with its code and agree with the sim's
+    ground truth: 'min laser' inside the laser threshold of a scanned
+    circle and off the kerb, 'contact' on the kerb and clear of the
+    threshold.  Returns one dict per episode."""
+    (env_g, sim_g), (env_c, sim_c) = pairs
+    res = []
+    for name, want, legs in SCRIPTS[kind]:
+        if kind == "real_env":
+            for env, sim in pairs:
+                sim.set_model_state(0.0, 0.0, 0.0)
+                sim.feed(env.env)
+        if not _same(env_g.reset(), env_c.reset()):
+            raise AssertionError(f"16b {kind} {name}: resets differ")
+        leg, codes = 0, []
+        while len(codes) < SCRIPT_MAX_STEPS:
+            target, stop = legs[leg]
+            if leg + 1 < len(legs) and math.hypot(
+                    target[0] - sim_g.pose[0],
+                    target[1] - sim_g.pose[1]) - stop < 1e-3:
+                leg += 1
+                continue
+            v, w = drive_cmd(sim_g.pose, target, stop, sim_g.dt)
+            codes.append(step_pair(f"{kind} {name} step {len(codes)}",
+                                   env_g, env_c, np.float32([[v, w]])))
+            if codes[-1]:
+                break
+        if codes[-1] != want or any(codes[:-1]):
+            raise AssertionError(f"16b {kind} {name}: codes {codes}, want "
+                                 f"{want} at the end and 0 before")
+        # the last move's truth (a reset's teleport leaves it)
+        clear, kerb = sim_g.clearance, sim_g.on_kerb
+        if name == "min laser" and not (clear < sim_g.ROBOT_R and not kerb):
+            raise AssertionError(f"16b {kind} min laser: {clear} {kerb}")
+        if name == "contact" and not (kerb and clear >= sim_g.ROBOT_R):
+            raise AssertionError(f"16b {kind} contact: {clear} {kerb}")
+        res.append(dict(name=name, code=want, steps=len(codes),
+                        clearance=clear, on_kerb=kerb))
+    return res
+
+
+def frontends_path() -> dict:
+    """16b: ``make_env`` with 'gazebo_env' over a CircleSim transport and
+    with 'real_env' fed scans, poses and tracked peds, both under the
+    stage-5 config's wrapper stack, on the card; every observation (the
+    raw one on the device, the log-polar sensor map included) equal to the
+    same frontend's on the CPU fed the same commands.  First the stage-5
+    policy drives FRONTEND_STEPS steps, its actions within POLICY_TOL of
+    the CPU's.  Its 5-wide vector state is the frontend's 3 and the last
+    command's (v, w), as the simulator's state_dim 5 carries them; given
+    that vector and a log-polar map it was not trained on, it turns in
+    place.  Then ``scripted_episodes`` drive the robot into each done code
+    the frontend computes: min laser (1), contact (1) and arrival (5) on
+    gazebo_env, arrival (5) on real_env."""
+    import copy
+
+    from img_env_tpu_torch import mean_action_fn
+
+    policy, cfg = load_stage5("cuda")
+    with open(POLICY_ENV, encoding="utf-8") as f:
+        raw = json.load(f)
+    fns = (mean_action_fn(policy, cfg),
+           mean_action_fn(copy.deepcopy(policy).cpu(), cfg))
+
+    def act(k, env, last):
+        obs = env.last_raw_obs
+        vec = torch.cat([obs.vector_states,
+                         last.to(obs.vector_states.device)[None]], -1)
+        return fns[k](None, obs._replace(vector_states=vec))
+
+    res = {}
+    for kind in ("gazebo_env", "real_env"):
+        pairs = frontend_pair(kind, raw)
+        (env_g, _), (env_c, _) = pairs
+        if env_g.device.type != "cuda" or env_g.env.device.type != "cuda":
+            raise AssertionError(f"16b {kind}: the frontend is not on the "
+                                 f"card")
+        if not _same(env_g.reset(), env_c.reset()):
+            raise AssertionError(f"16b {kind}: resets differ")
+        last = torch.zeros(2)
+        worst, codes, t0 = 0.0, [], time.perf_counter()
+        for t in range(FRONTEND_STEPS):
+            a_g, a_c = act(0, env_g, last), act(1, env_c, last)
+            worst = max(worst, float((a_g.cpu() - a_c).abs().max()))
+            if not torch.allclose(a_g.cpu(), a_c, rtol=POLICY_TOL,
+                                  atol=POLICY_TOL):
+                raise AssertionError(f"16b {kind}: actions card vs CPU "
+                                     f"{worst}")
+            last = a_g[0].cpu()
+            codes.append(step_pair(f"{kind} policy step {t}", env_g, env_c,
+                                   last.numpy()[None]))
+        sm = env_g.last_raw_obs.sensor_maps
+        if not (sm.is_cuda and bool((sm == 1.0).any())):
+            raise AssertionError(f"16b {kind}: no hit in the sensor map")
+        policy_s = time.perf_counter() - t0
+        policy_metrics = env_g.metrics.summary()
+        t0 = time.perf_counter()
+        scripted = scripted_episodes(kind, pairs)
+        res[kind] = dict(worst=worst, codes=codes, s=policy_s,
+                         metrics=policy_metrics, scripted=scripted,
+                         scripted_s=time.perf_counter() - t0,
+                         scripted_metrics=env_g.metrics.summary())
+    return res
+
+
+def drivers_path() -> dict:
+    """16c: ``eval.evaluate --batch --policy ckpt`` over 4 bank episodes
+    and ``examples.run_mpc --render`` at a few steps on the card; the PNG
+    read back by the port's map loader."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from img_env_tpu_torch.env.maps import decode_png
+    from img_env_tpu_torch.eval import evaluate
+    from img_env_tpu_torch.examples import run_mpc
+
+    out = tempfile.mkdtemp(prefix="drivers16c_")
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            evaluate.main(["--batch", "--policy", "ckpt", "--episodes", "4",
+                           "--max-steps", "3", "--bank", BANK50])
+        text = buf.getvalue()
+        if "arrive_rate" not in text:
+            raise AssertionError(f"16c evaluate: {text}")
+        png = os.path.join(out, "mpc.png")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_mpc.main(["--steps", "3", "--render", png])
+        img = decode_png(png)
+        if img.ndim != 3 or img.shape[2] != 3 or img.max() == img.min():
+            raise AssertionError(f"16c run_mpc: PNG {img.shape}")
+        return dict(evaluate=" ".join(text.split()),
+                    run_mpc=buf.getvalue().strip().splitlines()[-2],
+                    png=list(img.shape))
+    finally:
+        shutil.rmtree(out)
+
+
+def report_phase16(mx, fe, dr, seconds) -> None:
+    o = mx["orca"]
+    log(f"# ORCA cell (part B, rvoscene, stage-5 policy, 50 scenes): "
+        f"{o['ms_step']:.3f} ms per control step over {ORCA_STEPS} steps; "
+        f"launches per step {o['per_step']}")
+    for beep in ("on", "off"):
+        c = mx[beep]
+        log(f"# matrix 16a, part C beep {beep} (ERVO policy, ervoscene, 50 "
+            f"scenes; reduced: {c['steps']} of 101 control steps): "
+            f"{c['ms_step']:.3f} ms per control step, policy share "
+            f"{c['policy_share']:.4f}, robot beeps {c['beeps']}, launches "
+            f"per step {c['per_step']}, summary {json.dumps(c['summary'])}")
+    log(f"# matrix 16a: {mx['ops']:.1f} device operations and "
+        f"{mx['busy_ms']:.4f} ms device busy per control step, idle share "
+        f"{mx['idle_share']:.4f}; renderers card = CPU (scene "
+        f"{mx['render_scene']}); table without matplotlib: "
+        f"{mx['table_csv']}")
+    for kind, r in fe.items():
+        log(f"# frontend 16b {kind}: {FRONTEND_STEPS} stage-5 policy steps "
+            f"on the card in {r['s']:.3f} s, observations = CPU, actions "
+            f"card vs CPU max error {r['worst']:.3g} (tolerance "
+            f"{POLICY_TOL}); dones_info {r['codes']}; metrics "
+            f"{json.dumps(r['metrics'])}")
+        eps = "; ".join(
+            f"{e['name']} -> code {e['code']} after {e['steps']} steps "
+            f"(clearance {e['clearance']:.4f} m, on kerb {e['on_kerb']})"
+            for e in r["scripted"])
+        log(f"# frontend 16b {kind}: scripted episodes on the card in "
+            f"{r['scripted_s']:.3f} s, observations and outputs = CPU: "
+            f"{eps}; metrics {json.dumps(r['scripted_metrics'])}")
+    log(f"# drivers 16c: evaluate --batch --policy ckpt: {dr['evaluate']}; "
+        f"run_mpc --render: {dr['run_mpc']}, PNG {dr['png']}")
+    log(f"# phase 16: {seconds:.1f} s")
+
+
+def phase16():
+    """Phase 16 with float32 without TF32, as in phases 1-12 and 14."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mx = matrix_path()
+    fe = frontends_path()
+    dr = drivers_path()
+    report_phase16(mx, fe, dr, time.perf_counter() - t0)
+    return mx
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3043,6 +3612,9 @@ def main() -> None:
     mesh_run = mesh_path()
     report_mesh(mesh_run)
 
+    # ---- the matrix, the frontends and the drivers (phase 16) ----
+    mx = phase16()
+
     src = "img_env_tpu_torch/csrc/"
     meta = {"raster": ("raster.cu", "img_env_tpu/ops/pallas_raster.py:105",
                        launches),
@@ -3064,7 +3636,10 @@ def main() -> None:
                 "ilqr bench200": il["per_step"], "barn100": br["per_step"],
                 **{f"production 2 ranks, rank {k}": {
                     name: c / MESH_STEPS for name, c in r["launches"].items()}
-                   for k, r in enumerate(mesh_run["batch"])}}
+                   for k, r in enumerate(mesh_run["batch"])},
+                "matrix ORCA cell": mx["orca"]["per_step"],
+                "matrix part C beep on": mx["on"]["per_step"],
+                "matrix part C beep off": mx["off"]["per_step"]}
     rows = [{"name": name, "route": "cuda", "source": src + cu,
              "replaces": replaces, "launches": runs[name],
              "launches_per_step": {p: c[name] for p, c in per_step.items()},

@@ -18,6 +18,7 @@ defaults chosen to match reference behavior):
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence, Tuple
@@ -401,8 +402,19 @@ class EnvConfig:
 
     @staticmethod
     def from_yaml(path: str) -> "EnvConfig":
-        import yaml   # optional dependency: only yaml configs need it
+        """The config of a yaml file (PyYAML needed) or, for a ``.json``
+        path, of its JSON (``read_config``)."""
+        return EnvConfig.from_dict(read_config(path))
 
-        with open(path, "r", encoding="utf-8") as f:
-            raw = yaml.load(f.read(), Loader=yaml.FullLoader)
-        return EnvConfig.from_dict(raw)
+
+def read_config(path: str) -> dict:
+    """A config file's raw dict: JSON for a ``.json`` path (what a machine
+    without PyYAML reads), else the reference's yaml (envs/__init__.py:
+    9-18), which needs PyYAML."""
+    with open(path, "r", encoding="utf-8") as f:
+        text = f.read()
+    if path.endswith(".json"):
+        return json.loads(text)
+    import yaml   # optional dependency: only yaml configs need it
+
+    return yaml.load(text, Loader=yaml.FullLoader)

@@ -12,21 +12,22 @@ Internally everything runs through ``NavEnv`` (or ``BatchedNavEnv`` when
 ``num_scenes > 1``) on the env's device; this facade converts to numpy at
 the boundary and implements the stateful conveniences (auto-reset, episode
 metrics) that the reference provides via Gym wrappers (envs/__init__.py:
-24-33, envs/wrapper/*).  The hardware and external-simulator frontends
-(``env_type`` 'real_env' and 'gazebo_env') are not ported.
+24-33, envs/wrapper/*).  ``env_type`` 'real_env' and 'gazebo_env' give the
+hardware and external-simulator frontends, with the same wrapper stack
+composed over them (``WrappedFrontend``).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from img_env_tpu_torch.config import EnvConfig
-from img_env_tpu_torch.core.state import map_tree
+from img_env_tpu_torch.core.state import Observation, map_tree
 from img_env_tpu_torch.env.nav_env import NavEnv
 from img_env_tpu_torch.env.wrappers import (StackedObs, WrapperStack,
                                             vel_action_map)
@@ -34,7 +35,7 @@ from img_env_tpu_torch.utils.metrics import EpisodeMetrics
 
 
 def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy()
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 class _FlatBatchedCore:
@@ -271,18 +272,148 @@ def _dataset_worlds(cfg: EnvConfig):
             for s, e in spans]
 
 
+class WrappedFrontend:
+    """Wrapper stack composed over a hardware/external frontend.
+
+    The reference applies the yaml ``wrapper:`` list to EVERY env_type
+    (envs/__init__.py:30-32), so GazeboEnv/RealEnv get action mapping,
+    paper reward, time limit, frame stacking and eval metrics exactly like
+    the simulator.  This class lifts the single-robot frontend's numpy
+    dict observation into the ``Observation`` the stack consumes, on the
+    frontend's device (the reference's GazeboEnv likewise returns a full
+    ``ImageState``, gazebo_env.py:251-282).  ``last_raw_obs`` is that
+    unfiltered Observation, for policy consumers, as on ``ImgNavEnv``.
+    """
+
+    def __init__(self, frontend, cfg: EnvConfig):
+        self.env = frontend             # raw frontend stays reachable
+        self.cfg = cfg
+        self.device = frontend.device
+        self.stack = WrapperStack(cfg, 1, self.device)
+        self.metrics = EpisodeMetrics(cfg)
+        self._ws = None
+        self._obs_filter = ImgNavEnv._pick_filter(cfg)
+        self._prev_dist: Optional[float] = None
+
+    def _t(self, x, dtype=torch.float32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=dtype,
+                               device=self.device)
+
+    # gazebo_env.py:251-282: frontends report one robot; lift to [1, ...]
+    def _to_observation(self, d: Dict[str, Any], dones_info) -> Observation:
+        vec = np.asarray(d["vector_states"], np.float32)
+        dist = float(np.hypot(float(vec[0, 0]), float(vec[0, 1])))
+        step_d = 0.0 if self._prev_dist is None else self._prev_dist - dist
+        self._prev_dist = dist
+        pv = np.asarray(d["ped_vector_states"], np.float32)
+        # nearest-ped clearance = dist - (r + robot_r) of the closest track
+        # (yaml_env.py:455 via NearbyPed; inf when no peds, reset_helper.py:92)
+        min_d = float(pv[0, 7] - pv[0, 6]) if pv[0, 0] > 0 else float("inf")
+        di = int(np.asarray(dones_info).reshape(-1)[0])
+        h, w = self.cfg.image_size
+        # sensor_maps: the frontend's image when provided (image_last,
+        # real_env.py:139 / gazebo_env.py:258), else synthesized from the
+        # scan (the reference's _trans_lidar_log_map alternative) on the
+        # device, so image policy checkpoints deploy through this facade.
+        if "sensor_maps" in d:
+            sm = self._t(d["sensor_maps"]).reshape(1, h, w)
+        elif "lasers" in d:
+            from img_env_tpu_torch.utils.lidar import trans_lidar_log_map
+
+            # frontends normalize lasers (norm_lasers); the log-polar map
+            # wants raw ranges in meters
+            scan = np.asarray(d["lasers"], np.float32).reshape(-1)
+            if self.cfg.laser_norm:
+                scan = scan * np.float32(self.cfg.laser_max)
+            sm = trans_lidar_log_map(self._t(scan), length=h).reshape(1, h, w)
+        else:
+            sm = torch.zeros((1, h, w), device=self.device)
+        return Observation(
+            vector_states=self._t(vec),
+            sensor_maps=sm,
+            is_collisions=self._t([1 if di in (1, 2, 3) else 0], torch.int32),
+            is_arrives=self._t([1 if di == 5 else 0], torch.int32),
+            lasers=self._t(d["lasers"]),
+            ped_vector_states=self._t(pv),
+            ped_maps=self._t(d["ped_maps"]),
+            step_ds=self._t([step_d]),
+            ped_min_dists=self._t([min_d]),
+        )
+
+    def reset(self):
+        d = self.env.reset()
+        self._prev_dist = None
+        if self._ws is None:
+            self._ws = self.stack.init_state()
+        obs = self.last_raw_obs = self._to_observation(d, np.zeros(1))
+        self._ws, sobs = self.stack.on_reset(self._ws, obs)
+        return self._filtered(sobs)
+
+    _filtered = ImgNavEnv._filtered
+
+    def step(self, actions):
+        if self.stack.use_vel_action:
+            if self.cfg.discrete_action:
+                raw = self._t(actions, torch.int64).reshape(-1)
+            else:
+                raw = self._t(actions).reshape(1, -1)
+            cmds, speeds = vel_action_map(self.cfg, raw)
+            cmd = _np(cmds).reshape(-1, cmds.shape[-1])[0]
+            speeds = speeds.reshape(1, -1)
+        else:
+            cmd = np.asarray(actions, np.float32).reshape(-1)
+            speeds = self._t(cmd[:2])[None]
+        d, reward, done, info = self.env.step(cmd)
+        info = dict(info)
+        dones_info = np.asarray(
+            info.get("dones_info", np.zeros(1))).reshape(1)
+        obs = self.last_raw_obs = self._to_observation(d, dones_info)
+        reward = self._t(np.asarray(reward, np.float32).reshape(1))
+        done = self._t(np.asarray(done, np.int32).reshape(1), torch.int32)
+        info["dones_info"] = self._t(dones_info.astype(np.int32),
+                                     torch.int32)
+        info["speeds"] = speeds
+        self._ws, sobs, reward, done, info = self.stack.on_step(
+            self._ws, obs, reward, done, info)
+        np_info = {k: _np(v) for k, v in info.items() if not callable(v)}
+        self.metrics.add_step(np_info)
+        if self.stack.use_never_stop and bool(np_info["all_down"]):
+            self.metrics.end_episode(np_info["dones_info"])
+            obs_out = self.reset()
+        else:
+            obs_out = self._filtered(sobs)
+        return obs_out, _np(reward), _np(done), np_info
+
+
 def make_env(cfg: Union[str, dict, EnvConfig], seed: int = 0,
-             device="cuda", **kw) -> ImgNavEnv:
-    """Reference-style factory (envs/__init__.py:24-33) for ``env_type``
-    'robot_nav': the simulator with the yaml ``wrapper:`` list composed
-    over it, on ``device`` (the card by default).  A path needs PyYAML;
-    a dict or an EnvConfig does not."""
+             device="cuda", **kw):
+    """Reference-style factory (envs/__init__.py:24-33): dispatch on
+    ``env_type`` — 'robot_nav' -> the simulator, 'real_env' -> the
+    hardware facade, 'gazebo_env' -> the external-simulator facade (which
+    needs a ``transport=`` ``ExternalSimTransport``) — on ``device`` (the
+    card by default).  The yaml ``wrapper:`` list composes over every
+    frontend, as in the reference (envs/__init__.py:30-32); pass
+    ``wrap=False`` for the bare hardware/external facade.  A path needs
+    PyYAML; a dict or an EnvConfig does not."""
     if isinstance(cfg, str):
         cfg = EnvConfig.from_yaml(cfg)
     elif isinstance(cfg, dict):
         cfg = EnvConfig.from_dict(cfg)
-    if cfg.env_type in ("real_env", "gazebo_env"):
-        raise NotImplementedError(
-            f"env_type {cfg.env_type!r} (the hardware and external-simulator "
-            f"frontends) is not ported (ROADMAP item 14)")
+    wrap = kw.pop("wrap", True)
+    if cfg.env_type == "real_env":
+        from img_env_tpu_torch.env.hardware_env import HardwareEnv
+
+        env = HardwareEnv(cfg, device=device, **kw)
+        return WrappedFrontend(env, cfg) if wrap and cfg.wrapper else env
+    if cfg.env_type == "gazebo_env":
+        from img_env_tpu_torch.env.external_env import ExternalSimEnv
+
+        if "transport" not in kw:
+            raise ValueError(
+                "env_type 'gazebo_env' needs a transport= keyword: an "
+                "ExternalSimTransport bundling the simulator callbacks "
+                "(scan, model state, cmd, contact — the gazebo_env.py "
+                "service surface). A rospy bridge is a few lines host-side.")
+        env = ExternalSimEnv(cfg, device=device, **kw)
+        return WrappedFrontend(env, cfg) if wrap and cfg.wrapper else env
     return ImgNavEnv(cfg, seed=seed, device=device, **kw)

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import sys
 import time
 from typing import Callable, Optional
@@ -114,9 +113,6 @@ def load_config(path: Optional[str], robots: int = 2,
             "max_ped": max(peds, 1),
             "sensor_mode": "fast",
         })
-    if path.endswith(".json"):
-        with open(path, encoding="utf-8") as f:
-            return EnvConfig.from_dict(json.load(f))
     return EnvConfig.from_yaml(path)
 
 

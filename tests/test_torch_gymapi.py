@@ -318,9 +318,15 @@ def test_dataset_world_facade_matches_jax():
 
 
 def test_unported_frontends_raise():
-    for env_type in ("real_env", "gazebo_env"):
-        with pytest.raises(NotImplementedError):
-            gymapi.make_env(cfg_dict(env_type=env_type), device="cpu")
+    """The frontends are ported (tests/test_torch_frontends.py): 'real_env'
+    gives the wrapped hardware facade, and 'gazebo_env' without a
+    transport raises the JAX package's ValueError."""
+    env = gymapi.make_env(cfg_dict(env_type="real_env"), device="cpu")
+    assert isinstance(env, gymapi.WrappedFrontend)
+    for make in (lambda d: gymapi.make_env(d, device="cpu"),
+                 lambda d: jgymapi.make_env(JaxEnvConfig.from_dict(d))):
+        with pytest.raises(ValueError, match="transport"):
+            make(cfg_dict(env_type="gazebo_env"))
 
 
 def test_time_control_paces_steps():

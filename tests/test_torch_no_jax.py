@@ -10,7 +10,12 @@ policy on a scene batch with SFM peds, its checkpoint saved and restored,
 and ``train.run``'s warm start from the committed npz; and the mesh
 (``parallel.mesh``, ``parallel.distributed``, ``parallel.tp``,
 ``parallel.dryrun``) with ``core.frames``, ``utils.statics_cache`` and
-``utils.debug``."""
+``utils.debug``; and the frontends, the evaluation outputs and the
+drivers (``utils.transforms``, ``utils.lidar``, ``utils.sarl``, the
+hardware and external-simulator frontends through ``make_env`` and a fake
+rospy, rendering, the headless viewer, the indicator table, the ERVO
+policy, and every ``eval`` driver and example) with matplotlib blocked
+too, as on the card's machine."""
 
 import json
 import os
@@ -264,6 +269,165 @@ MESH_SCRIPT = textwrap.dedent("""
 """)
 
 
+FRONTEND_SCRIPT = textwrap.dedent("""
+    import builtins
+    import json
+    import math
+    import os
+    import sys
+    import tempfile
+    import types
+    BLOCKED = ("jax", "jaxlib", "img_env_tpu", "cv2", "PIL", "yaml",
+               "matplotlib", "flax", "orbax")
+    for name in BLOCKED:
+        sys.modules[name] = None          # any import of them now fails
+
+    import numpy as np
+    import torch
+    from img_env_tpu_torch import EnvConfig, NavEnv, make_env
+    from img_env_tpu_torch.config import read_config
+    from img_env_tpu_torch.env import gymapi, ros_bridge
+    from img_env_tpu_torch.env.external_env import ExternalSimTransport
+    from img_env_tpu_torch.env.hardware_env import ScanSample, TrackedPed
+    from img_env_tpu_torch.env.maps import decode_png
+    from img_env_tpu_torch.eval import (compare_methods, ervo_beep_demo,
+                                        evaluate, experiment_matrix, plots)
+    from img_env_tpu_torch.eval.live_view import LiveViewer, compose_gui
+    from img_env_tpu_torch.eval.render import (render_frame, render_tiles,
+                                               save_png)
+    from img_env_tpu_torch.examples import console, run_mpc, run_random
+    from img_env_tpu_torch.models.policy import load_ckpt_policy
+    from img_env_tpu_torch.utils import lidar, sarl, transforms
+
+    out = tempfile.mkdtemp()
+    m = transforms.matrix_from_t_q([1, 2, 0], transforms.quaternion_from_yaw(
+        0.3))
+    assert np.allclose(transforms.mul_matrix(m, transforms.inverse(m)),
+                       np.eye(4))
+    img = lidar.trans_lidar_log_map(torch.linspace(0.2, 7.0, 960))
+    assert img.shape == (48, 48) and bool((img == 1.0).any())
+    rows, valid = sarl.batched_sarl_states(torch.zeros(3, 5),
+                                           torch.zeros(3, 71), 0.17)
+    assert rows.shape == (3, 10, 14) and valid[:, 0].all()
+
+    class Sim:
+        def __init__(self):
+            self.pose = np.zeros(3)
+        def set_model_state(self, x, y, yaw):
+            self.pose = np.asarray([x, y, yaw], np.float64)
+        def get_model_state(self):
+            return tuple(self.pose)
+        def send_cmd(self, v, w):
+            x, y, th = self.pose
+            self.pose = np.asarray([x + v * math.cos(th) * 0.4,
+                                    y + v * math.sin(th) * 0.4,
+                                    th + w * 0.4])
+        def get_scan(self):
+            ang = np.linspace(-math.pi, math.pi, 90, endpoint=False)
+            return ScanSample(np.full(90, 2.0) + 0.3 * np.cos(ang),
+                              -math.pi, 2 * math.pi / 90)
+        def get_peds(self):
+            return [TrackedPed((1.0, 1.0), (0.1, 0.0))]
+
+    wrappers = ["VelActionWrapper", "TimeLimitWrapper",
+                "SensorsPaperRewardWrapper", "InfoLogWrapper",
+                "StateBatchWrapper", "ObsLaserStateTmp", "NeverStopWrapper"]
+    d = {"robot": {"total": 1}, "ped_sim": {"total": 0},
+         "global_map": {"resolution": 0.1, "map_file": "room_10.png"},
+         "view_map": {"resolution": 0.05, "width": 3, "height": 3},
+         "env_type": "gazebo_env", "range_total": 90, "time_max": 3,
+         "start_global_pose": [0.0, 0.0, 0.0],
+         "target_global_pose": [0.0, 3.0], "wrapper": wrappers}
+    sim = Sim()
+    env = make_env(d, device="cpu", transport=ExternalSimTransport(
+        get_scan=sim.get_scan, get_model_state=sim.get_model_state,
+        set_model_state=sim.set_model_state, send_cmd=sim.send_cmd,
+        get_peds=sim.get_peds), wrap=True)
+    env.env.real_time = False
+    env.reset()
+    for _ in range(5):
+        obs, reward, done, info = env.step([0.3, 0.1])
+    assert env.metrics.stuck == 1
+    real = make_env(dict(d, env_type="real_env", control_hz=0.0),
+                    device="cpu")
+    real.env.feed_scan(sim.get_scan())
+    real.reset()
+    real.step([0.1, 0.0])
+
+    class Rospy:
+        def __init__(self):
+            self.subs = {}
+        def Publisher(self, topic, cls, queue_size=1):
+            return types.SimpleNamespace(publish=lambda msg: None)
+        def Subscriber(self, topic, cls, cb, queue_size=1):
+            self.subs[topic] = cb
+        def ServiceProxy(self, name, cls):
+            return lambda *a, **k: None
+
+    rospy = Rospy()
+    bridge = ros_bridge.RealRobotBridge(EnvConfig.from_dict(d), rospy=rospy,
+                                        device="cpu")
+    rospy.subs["robot0/scan"](types.SimpleNamespace(
+        ranges=np.full(90, 2.5), angle_min=-math.pi,
+        angle_increment=2 * math.pi / 90))
+    assert bridge.env.observe()["sensor_maps"].shape == (1, 48, 48)
+
+    cfg = EnvConfig.from_dict(json.loads(sys.argv[1]))
+    nav = NavEnv(cfg, "cpu")
+    state, o = nav.reset()
+    frame = render_frame(state, nav.statics, beep_radius=0.5)
+    save_png(os.path.join(out, "f.png"), frame)
+    assert (decode_png(os.path.join(out, "f.png")) == frame).all()
+    assert render_tiles(o.sensor_maps).ndim == 3
+    assert compose_gui(state, nav.statics, o.sensor_maps, cfg).ndim == 3
+    viewer = LiveViewer(nav.statics, cfg)
+    assert viewer.backend == "none" and viewer.update(state, o.sensor_maps
+                                                      ) is not None
+
+    small = {"view_map": {"resolution": 0.05, "width": 3.0, "height": 3.0},
+             "range_total": 32, "time_max": 3}
+    paths = {}
+    for name, src in (("base", experiment_matrix.BASELINE_CFG),
+                      ("ervo", experiment_matrix.ERVO_CFG)):
+        paths[name] = os.path.join(out, name + ".json")
+        with open(paths[name], "w") as f:
+            json.dump(dict(read_config(src), **small), f)
+    fn, _ = load_ckpt_policy(EnvConfig.from_yaml(paths["ervo"]),
+                             experiment_matrix.ERVO, "cpu")
+    evaluate.main([paths["base"], "--batch", "--policy", "ckpt",
+                   "--episodes", "2", "--record", os.path.join(out, "r.npz"),
+                   "--device", "cpu"])
+    evaluate.main([paths["base"], "--policy", "random", "--episodes", "1",
+                   "--max-steps", "2", "--device", "cpu"])
+    compare_methods.main([paths["base"], "--episodes", "1", "--max-steps",
+                          "2", "--methods", "random,ckpt", "--out",
+                          os.path.join(out, "cmp"), "--device", "cpu",
+                          "--no-figures"])
+    experiment_matrix.main(["--episodes", "2", "--parts", "A,C",
+                            "--no-figures", "--out", os.path.join(out, "m"),
+                            "--baseline-cfg", paths["base"], "--ervo-cfg",
+                            paths["ervo"], "--device", "cpu"])
+    rows = open(os.path.join(out, "m", "matrix.csv")).read().splitlines()
+    assert len(rows) == 6, rows
+    ervo_beep_demo.main(["--steps", "2", "--out", "", "--device", "cpu"])
+    run_random.main([paths["base"], "--episodes", "1", "--max-steps", "2",
+                     "--render", os.path.join(out, "rr.png"),
+                     "--device", "cpu"])
+    run_mpc.main(["--steps", "2", "--robots", "2", "--samples", "8",
+                  "--horizon", "3", "--render", os.path.join(out, "m.png"),
+                  "--gui", "--device", "cpu"])
+    cmds = iter(["step", "peek peds", "render " + os.path.join(out, "c.png"),
+                 "quit"])
+    builtins.input = lambda prompt="": next(cmds)
+    console.main([paths["base"], "--device", "cpu"])
+    assert decode_png(os.path.join(out, "c.png")).ndim == 3
+    leaked = [m for m in sys.modules if sys.modules[m] is not None
+              and m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("port-ok")
+""")
+
+
 def _run(cfg_dict, head="cv", scenes=None, script=SCRIPT):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -333,3 +497,10 @@ def test_port_mesh_training_and_library_without_jax():
     the tensor-parallel plan and forward, frames, the statics cache, and
     the dryrun's rank function."""
     _run(ped_cfg_dict(), script=MESH_SCRIPT)
+
+
+def test_frontends_outputs_and_drivers_without_jax_or_matplotlib():
+    """Steps 1-16 of the last slice: the library modules, both frontends
+    under the wrapper stack and a fake rospy, rendering and the headless
+    viewer, the ERVO policy, and every driver at 1-2 episodes."""
+    _run(ped_cfg_dict(), script=FRONTEND_SCRIPT)

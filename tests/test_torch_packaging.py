@@ -78,15 +78,16 @@ def test_navenv_defaults_to_the_card():
 
 
 def test_policy_artifacts_are_package_data():
-    """The committed stage-5 policy (npz and its env json) ships with the
-    package, and git does not ignore it."""
+    """The committed policies (the stage-5 and the ERVO npz, each with its
+    env json) ship with the package, and git does not ignore them."""
     import subprocess
 
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
         data = tomllib.load(f)
     globs = data["tool"]["setuptools"]["package-data"]["img_env_tpu_torch"]
     names = sorted(os.listdir(os.path.join(PKG, "artifacts")))
-    assert names == ["stage5_policy.npz", "stage5_policy_env.json"]
+    assert names == ["ervo_policy.npz", "ervo_policy_env.json",
+                     "stage5_policy.npz", "stage5_policy_env.json"]
     for name in names:
         rel = f"artifacts/{name}"
         assert any(fnmatch.fnmatch(rel, g) for g in globs), rel

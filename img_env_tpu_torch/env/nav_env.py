@@ -79,6 +79,7 @@ from img_env_tpu_torch.ops import raster
 from img_env_tpu_torch.ops.footprint import circle_points, rectangle_points
 from img_env_tpu_torch.ops.view import ViewParams, ViewStatics, own_view_cells
 from img_env_tpu_torch.utils import statics_cache as scache
+from img_env_tpu_torch.utils import trace
 
 
 def _pad_clouds(clouds):
@@ -403,9 +404,11 @@ class NavEnv:
         self._cache_key = (
             scache.cache_key(cfg, cfg.resolve_map_path())
             if scache.cache_dir() else None)
-        self.statics = st = scache.cached(
-            self._cache_key and "st-" + self._cache_key,
-            lambda: build_statics(cfg), lambda x: isinstance(x, EnvStatics))
+        with trace.span("setup.statics"):
+            self.statics = st = scache.cached(
+                self._cache_key and "st-" + self._cache_key,
+                lambda: build_statics(cfg),
+                lambda x: isinstance(x, EnvStatics))
         raster.check_footprint_span(st.robot_points, st.resolution)
         dev = self.device
         self.group_tables = tuple(self._group_tables(gi, g)
@@ -610,9 +613,10 @@ class NavEnv:
     def step_fn(self, state: WorldState, actions, beep_u=None):
         """actions: [N,3] (v, w, v_y/beep).  ``beep_u``: optional [N]
         uniform draw for the beep response (default: the generator)."""
-        new_state, alive, beeps = self.advance_fn(state, actions, beep_u)
-        new_state, obs = self._observe(new_state)
-        return self.finish_step(new_state, obs, alive, beeps)
+        with trace.span("env.step"):
+            new_state, alive, beeps = self.advance_fn(state, actions, beep_u)
+            new_state, obs = self._observe(new_state)
+            return self.finish_step(new_state, obs, alive, beeps)
 
     @staticmethod
     def finish_step(new_state, obs: Observation, alive, beeps):
@@ -634,6 +638,7 @@ class NavEnv:
             None if beep_u is None else beep_u[None])
         return _drop_scene_axis(states), alive[0], beeps[0]
 
+    @trace.spanned("env.advance")
     def advance_scenes(self, states: WorldState, actions, beep_u=None):
         """``advance_fn`` over S scenes: states with a leading [S] axis,
         actions [S, N, 3], beep_u [S, N] (default: S*N draws from the
@@ -661,18 +666,21 @@ class NavEnv:
         if cfg.ped_sim.total == 0 or self.scene_type in ("none", ""):
             peds, crowd_aux = states.peds, states.crowd_aux
         else:
-            per_scene = [self._crowd_step(
-                map_tree(lambda x, k=k: x[k], states),
-                sources[k * n:(k + 1) * n], radii[k * n:(k + 1) * n])
-                for k in range(s)]
-            peds = stack_trees([p for p, _ in per_scene])
-            crowd_aux = stack_trees([a for _, a in per_scene])
+            with trace.span("env.crowd"):
+                per_scene = [self._crowd_step(
+                    map_tree(lambda x, k=k: x[k], states),
+                    sources[k * n:(k + 1) * n], radii[k * n:(k + 1) * n])
+                    for k in range(s)]
+                peds = stack_trees([p for p, _ in per_scene])
+                crowd_aux = stack_trees([a for _, a in per_scene])
         unflat = lambda x: x.reshape((s, n) + x.shape[1:])
-        pose, l0, l1, vel, arrive_new = (unflat(x) for x in batched_robot_cmd(
-            flat(r.pose), flat(r.goal), flat(r.vw_last0), flat(r.vw_last1),
-            flat(r.vel_world), flat(v), flat(w), flat(v_y), flat(alive),
-            st.limiter_v, st.limiter_w, float(cfg.control_hz),
-            cfg.n_substeps, cfg.robot_type))
+        with trace.span("env.dynamics"):
+            pose, l0, l1, vel, arrive_new = (
+                unflat(x) for x in batched_robot_cmd(
+                    flat(r.pose), flat(r.goal), flat(r.vw_last0),
+                    flat(r.vw_last1), flat(r.vel_world), flat(v), flat(w),
+                    flat(v_y), flat(alive), st.limiter_v, st.limiter_w,
+                    float(cfg.control_hz), cfg.n_substeps, cfg.robot_type))
         beeps = unflat(beeps)
         robots = RobotState(
             pose=pose, goal=r.goal, goal_yaw=r.goal_yaw,
@@ -853,6 +861,7 @@ class NavEnv:
         new_state, obs = self.observe_scenes(_add_scene_axis(state))
         return _drop_scene_axis(new_state), map_tree(lambda x: x[0], obs)
 
+    @trace.spanned("env.observe")
     def observe_scenes(self, states: WorldState
                        ) -> Tuple[WorldState, Observation]:
         """The observation of S scenes (every state tensor with a leading
@@ -868,10 +877,13 @@ class NavEnv:
         s, n = r.pose.shape[:2]
         b = s * n
         dev = self.device
-        layers = self._layers(states)
-        collision = raster.collision_codes(layers, r.collision, r.arrive)
+        with trace.span("env.raster"):
+            layers = self._layers(states)
+            collision = raster.collision_codes(layers, r.collision, r.arrive)
         poses = r.pose.reshape(b, 3)
-        sensor_maps, hits, angular = self._sensor_pass(layers.packed, poses)
+        with trace.span("env.sensor"):
+            sensor_maps, hits, angular = self._sensor_pass(layers.packed,
+                                                           poses)
 
         vec = observe.vector_state(poses, r.goal.reshape(b, 2),
                                    r.goal_yaw.reshape(b),
@@ -887,10 +899,11 @@ class NavEnv:
         # (agent.cpp:434-436)
         hit_points = hits[..., None] * t.beam_dirs[None]
         if cfg.ped_sim.total:
-            ped_vec, ped_map, ped_min = observe.ped_vectors_and_map(
-                r.pose, p.pos, p.vel, ct.ped_r, ct.robot_radius,
-                int(cfg.max_ped), int(cfg.ped_vec_dim),
-                int(cfg.ped_image_size[0]), float(cfg.ped_image_r))
+            with trace.span("env.peds"):
+                ped_vec, ped_map, ped_min = observe.ped_vectors_and_map(
+                    r.pose, p.pos, p.vel, ct.ped_r, ct.robot_radius,
+                    int(cfg.max_ped), int(cfg.ped_vec_dim),
+                    int(cfg.ped_image_size[0]), float(cfg.ped_image_r))
         else:
             ped_vec = torch.zeros((s, n, 1 + cfg.ped_vec_dim * cfg.max_ped),
                                   device=dev)

@@ -50,6 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from img_env_tpu_torch.utils import trace
+
 Tensor = torch.Tensor
 # the crowd attention's heads (flax's CrowdAttention.heads)
 ATTN_HEADS = 4
@@ -451,7 +453,8 @@ def mean_action_fn(policy: CrowdNavPolicy, env_cfg) -> Callable:
         sm = flat(obs.sensor_maps)[:, None]
         pm = flat(obs.ped_maps) if use_ped else None
         pv = flat(obs.ped_vector_states) if use_ped else None
-        mean, _, _ = policy(sm, flat(obs.vector_states), pm, pv)
-        return torch.clamp(mean, lo, hi).reshape(lead + (-1,))
+        with trace.span("policy.forward"):
+            mean, _, _ = policy(sm, flat(obs.vector_states), pm, pv)
+            return torch.clamp(mean, lo, hi).reshape(lead + (-1,))
 
     return policy_fn

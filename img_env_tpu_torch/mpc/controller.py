@@ -27,6 +27,7 @@ from img_env_tpu_torch.mpc.edt import edt2d
 from img_env_tpu_torch.mpc.ilqr import IlqrConfig, batched_ilqr
 from img_env_tpu_torch.mpc.mppi import MppiConfig, batched_mppi
 from img_env_tpu_torch.mpc.prediction import predict_peds
+from img_env_tpu_torch.utils import trace
 
 OCCUPIED_THRESH = 250  # grid value < 250 is occupied (agent.cpp:394-401)
 
@@ -124,6 +125,7 @@ class MpcController:
         return MpcState(nominal=torch.zeros(
             (scenes, n, self.cfg.horizon, 2), device=self.device))
 
+    @trace.spanned("mpc.act")
     def act_scenes(self, states: WorldState, mpc_state: MpcState,
                    noise=None):
         """Plan for S scenes (states with a leading [S] axis, as
@@ -151,18 +153,19 @@ class MpcController:
         pos, vel = states.peds.pos.to(dtype), states.peds.vel.to(dtype)
         vmax = env.crowd.max_speed.to(dtype)
         m = pos.shape[1]
-        if self.ped_prediction not in ("orca", "sfm"):
-            ped_traj = predict_peds("cv", pos.reshape(-1, 2),
-                                    vel.reshape(-1, 2), vmax.repeat(s),
-                                    horizon, dt)
-            ped_traj = ped_traj.reshape(horizon, s, m, 2).transpose(0, 1)
-        else:
-            segs = states.obstacles.segs
-            ped_traj = torch.stack([predict_peds(
-                self.ped_prediction, pos[k], vel[k], vmax, horizon, dt,
-                orca_cfg=st.orca_cfg,
-                segments=map_tree(lambda x: x[k], segs))
-                for k in range(s)])                           # [S,H,M,2]
+        with trace.span("mpc.predict"):
+            if self.ped_prediction not in ("orca", "sfm"):
+                ped_traj = predict_peds("cv", pos.reshape(-1, 2),
+                                        vel.reshape(-1, 2), vmax.repeat(s),
+                                        horizon, dt)
+                ped_traj = ped_traj.reshape(horizon, s, m, 2).transpose(0, 1)
+            else:
+                segs = states.obstacles.segs
+                ped_traj = torch.stack([predict_peds(
+                    self.ped_prediction, pos[k], vel[k], vmax, horizon, dt,
+                    orca_cfg=st.orca_cfg,
+                    segments=map_tree(lambda x: x[k], segs))
+                    for k in range(s)])                       # [S,H,M,2]
         ts = (torch.arange(1, horizon + 1, dtype=torch.float32, device=dev)
               * dt).to(dtype)[:, None, None]
         robot_traj = pose[None, :, :2] + flat(r.vel_world)[None] * ts

@@ -40,6 +40,7 @@ from img_env_tpu_torch.mpc.cost import (
 )
 from img_env_tpu_torch.mpc.lqr import LqtProblem, lqt_backward_assoc
 from img_env_tpu_torch.ops.raster import div_const
+from img_env_tpu_torch.utils import trace
 
 
 class IlqrConfig(NamedTuple):
@@ -238,6 +239,7 @@ def ilqr_solve(x0, goal, us_init, wc: WorldCost, ped_traj, ped_r,
     return us[0], xs[0], cost[0]
 
 
+@trace.spanned("mpc.solve")
 def batched_ilqr(x0s, goals, us_inits, wc: WorldCost, ped_traj, ped_r,
                  cfg: IlqrConfig, w8: CostWeights = CostWeights(),
                  dt: float = 0.4, robot_traj=None, robot_r=None):

@@ -30,6 +30,7 @@ from img_env_tpu_torch.mpc.cost import (
     stage_cost,
     terminal_cost,
 )
+from img_env_tpu_torch.utils import trace
 
 
 class MppiConfig(NamedTuple):
@@ -155,6 +156,7 @@ def cem_plan(noise, ps: PlannerState, pose, vw0, vw1, goal,
     return mean[0], PlannerState(nominal=nominal), cost
 
 
+@trace.spanned("mpc.neighbours")
 def _scene_neighbours(poses, scene, robot_traj, robot_r, nps: int,
                       avoid_k: int):
     """Each robot's avoidance tracks among the robots of its own scene:
@@ -177,6 +179,7 @@ def _scene_neighbours(poses, scene, robot_traj, robot_r, nps: int,
     return torch.where(far, 1e6, others), robot_r[near]
 
 
+@trace.spanned("mpc.solve")
 def batched_mppi(noise, ps_nominal, poses, vw0, vw1, goals,
                  wc: WorldCost, limiter_v: LimiterParams,
                  limiter_w: LimiterParams, ped_traj, ped_r,
@@ -222,12 +225,14 @@ def batched_mppi(noise, ps_nominal, poses, vw0, vw1, goals,
                               / float(wc.resolution))) + 2
     patch_size = (2 * reach_cells + 2 + 7) // 8 * 8
     pool = 1 if cfg.exact_cost else max(1, patch_size // 96)
-    shape, corner = local_edt_patch(wc, poses[:, :2], patch_size, pool)
-    local_edt = (pooled_edt(wc.edt, pool), shape, corner, pool)
+    with trace.span("mpc.edt"):
+        shape, corner = local_edt_patch(wc, poses[:, :2], patch_size, pool)
+        local_edt = (pooled_edt(wc.edt, pool), shape, corner, pool)
 
-    costs = _rollout_costs(cand, poses, vw0, vw1, goals, wc, w8, limiter_v,
-                           limiter_w, avoid_traj, avoid_r, dt, omni,
-                           local_edt)
+    with trace.span("mpc.rollout"):
+        costs = _rollout_costs(cand, poses, vw0, vw1, goals, wc, w8,
+                               limiter_v, limiter_w, avoid_traj, avoid_r, dt,
+                               omni, local_edt)
     beta = costs.amin(dim=1, keepdim=True)
     wts = torch.softmax(-(costs - beta) / cfg.lam, dim=1)     # [N, K]
     plan = torch.einsum("nk,nkhd->nhd", wts, cand)

@@ -34,6 +34,7 @@ from img_env_tpu_torch.config import EnvConfig
 from img_env_tpu_torch.core.state import map_tree, stack_trees
 from img_env_tpu_torch.env.nav_env import NavEnv
 from img_env_tpu_torch.parallel.mesh import scene_block
+from img_env_tpu_torch.utils import trace
 
 
 class BatchedNavEnv:
@@ -95,15 +96,20 @@ class BatchedNavEnv:
         core = self.core
         pick = lambda tree, k: (None if tree is None
                                 else map_tree(lambda x: x[k], tree))
-        states = [core.reset_state_fn(
-            samples[k], pick(carry, k),
-            static_map=None if static_maps is None else static_maps[k])
-            for k in range(len(samples))]
-        if self.legacy_vmap:
-            return tuple(stack_trees(parts) for parts in
-                         zip(*(core._observe(x) for x in states)))
-        return core.observe_scenes(stack_trees(states))
+        with trace.span("batch.reset_local"):
+            trace.count("reset.scenes", len(samples))
+            with trace.span("reset.states"):
+                states = [core.reset_state_fn(
+                    samples[k], pick(carry, k),
+                    static_map=None if static_maps is None
+                    else static_maps[k])
+                    for k in range(len(samples))]
+            if self.legacy_vmap:
+                return tuple(stack_trees(parts) for parts in
+                             zip(*(core._observe(x) for x in states)))
+            return core.observe_scenes(stack_trees(states))
 
+    @trace.spanned("env.step")
     def step(self, states, actions, beep_u=None):
         """actions [S, N, 3] (with a mesh, this rank's block); ``beep_u``:
         optional [S, N] uniform draws for the beep response of the global

@@ -388,3 +388,37 @@ def test_paint_block_kernel_matches_twin(dev, n, beams):
     got = painter.paint_blocks_kernel(tt, s_hit, s_tail, pst.n_slots)
     assert torch.equal(got, painter.paint_sorted(pst, tt, s_hit, s_tail))
     assert painter.paint(pst, tt, s_hit, s_tail).equal(got)
+
+
+def test_span_holds_the_kernel_launch(dev):
+    """The host spans' clock is the trace's: a span (``utils.trace``,
+    ``time.time_ns``) around one K1 launch under torch.profiler with
+    device activity only holds the host time of the runtime call whose
+    correlation id the raster kernel's device event carries."""
+    from img_env_tpu_torch.utils import trace
+
+    poses, static, pts, msk = _scene(37, 37, dev)
+    cells = raster.world_to_cell(raster.transform_points(poses, pts), RES)
+    raster.robot_maps_kernel(cells, msk, *static.shape)     # built, loaded
+    torch.cuda.synchronize()
+    trace.enable()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with trace.span("k1"):
+                raster.robot_maps_kernel(cells, msk, *static.shape)
+            torch.cuda.synchronize()
+        spans, _ = trace.drain()
+    finally:
+        trace.disable()
+    [(_, _, lo, hi)] = spans
+    events = list(prof.profiler.kineto_results.events())
+    on_card = lambda e: e.device_type() == torch.autograd.DeviceType.CUDA
+    [kernel] = [e for e in events
+                if on_card(e) and "raster_robots_kernel" in e.name()]
+    [call] = [e for e in events if not on_card(e)
+              and e.name().startswith("cu")
+              and e.correlation_id() == kernel.correlation_id()]
+    assert lo <= call.start_ns()
+    assert call.start_ns() + call.duration_ns() <= hi
+    assert lo <= kernel.start_ns()

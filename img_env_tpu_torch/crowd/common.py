@@ -16,8 +16,9 @@ from img_env_tpu_torch.constants import PED_WAYPOINT_DIST_SQ
 
 
 def _take(traj, idx):
-    """traj [M, W, 2] at per-ped slot idx [M] -> [M, 2]."""
-    return torch.gather(traj, 1, idx[:, None, None].expand(-1, 1, 2))[:, 0]
+    """traj [..., M, W, 2] at per-ped slot idx [..., M] -> [..., M, 2]."""
+    i = idx[..., None, None]
+    return torch.gather(traj, -2, i.expand(i.shape[:-1] + (2,)))[..., 0, :]
 
 
 def advance_traj_goals(pos, traj, traj_len, traj_idx
@@ -29,7 +30,9 @@ def advance_traj_goals(pos, traj, traj_len, traj_idx
     agent.cpp:839-843): once the raw index reaches len(traj) it never
     advances again and the goal stays ``traj[idx % len]``.
 
-    Returns (next_goals [M,2], new_traj_idx [M]).
+    pos [..., M, 2], traj [..., M, W, 2], traj_len / traj_idx [..., M]
+    (any leading scene axes).  Returns (next_goals [..., M, 2],
+    new_traj_idx [..., M]).
     """
     len_safe = traj_len.clamp(min=1)
     in_range = traj_idx < traj_len
@@ -66,9 +69,11 @@ def sample_beeps(robot_pose, v_y, beep_r: float, ped_ca_p: float,
 
 def dataset_replay(step, traj, traj_v, traj_len):
     """Dataset scene: pose and velocity at the step index, clamped to each
-    ped's series (img_env.cpp:361-386).  traj, traj_v: [M,T,2]; step: []
-    int.  Returns (pos [M,2], vel [M,2], yaw [M])."""
-    idx = torch.minimum(step.expand(traj_len.shape), traj_len - 1).clamp(
-        min=0).long()
+    ped's series (img_env.cpp:361-386).  traj, traj_v: [..., M, T, 2];
+    traj_len [..., M]; step: int, [] or one per scene [...].  Returns
+    (pos [..., M, 2], vel [..., M, 2], yaw [..., M])."""
+    step = torch.as_tensor(step, device=traj_len.device)
+    step = step.reshape(step.shape + (1,) * (traj_len.dim() - step.dim()))
+    idx = torch.minimum(step, traj_len - 1).clamp(min=0).long()
     pos, vel = _take(traj, idx), _take(traj_v, idx)
-    return pos, vel, torch.atan2(vel[:, 1], vel[:, 0])
+    return pos, vel, torch.atan2(vel[..., 1], vel[..., 0])

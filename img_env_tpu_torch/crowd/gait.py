@@ -41,9 +41,11 @@ def update_gait(gait_state, gait_residual, move_dist, rest_left_xy,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Advance the gait cycle (PedAgent::update_bbox, agent.cpp:696-735).
 
-    move_dist: [M] distance moved since the last step; rest_left_xy /
-    rest_right_xy: [M,2] configured leg offsets (sizes[0:2], [3:5]).
-    Returns (new_state [M] int32, new_residual [M], leg_offsets [M,2,2]).
+    move_dist: [..., M] distance moved since the last step (any leading
+    scene axes, as gait_state and gait_residual); rest_left_xy /
+    rest_right_xy: [M,2] (or [..., M, 2]) configured leg offsets
+    (sizes[0:2], [3:5]).  Returns (new_state [..., M] int32, new_residual
+    [..., M], leg_offsets [..., M, 2, 2]).
     In float32 the step count divides by the float32 reciprocal and the
     residual is one fused multiply-add, as XLA compiles the JAX package.
     """
@@ -63,8 +65,9 @@ def update_gait(gait_state, gait_residual, move_dist, rest_left_xy,
     # Phases 0/4 restore the configured (x, y) rest offsets; the stride
     # phases overwrite only x and keep y, which is the configured y (the
     # reference never changes leg.y outside 0/4).
-    left = torch.stack([torch.where(rest, rest_left_xy[:, 0], lm),
-                        rest_left_xy[:, 1]], -1)
-    right = torch.stack([torch.where(rest, rest_right_xy[:, 0], rm),
-                         rest_right_xy[:, 1]], -1)
-    return new_state, new_residual, torch.stack([left, right], dim=1)
+    shape = lm.shape
+    left = torch.stack([torch.where(rest, rest_left_xy[..., 0], lm),
+                        rest_left_xy[..., 1].expand(shape)], -1)
+    right = torch.stack([torch.where(rest, rest_right_xy[..., 0], rm),
+                         rest_right_xy[..., 1].expand(shape)], -1)
+    return new_state, new_residual, torch.stack([left, right], dim=-2)

@@ -54,7 +54,6 @@ from img_env_tpu_torch.core.state import (
     RobotState,
     WorldState,
     map_tree,
-    stack_trees,
 )
 from img_env_tpu_torch.crowd import common as crowd_common
 from img_env_tpu_torch.crowd import gait as gait_mod
@@ -643,7 +642,8 @@ class NavEnv:
         """``advance_fn`` over S scenes: states with a leading [S] axis,
         actions [S, N, 3], beep_u [S, N] (default: S*N draws from the
         generator).  The beeps and the robot dynamics are elementwise and
-        run flat over the S*N robots; the crowd steps once per scene."""
+        run flat over the S*N robots; the crowd steps every scene at once
+        (``_crowd_step``)."""
         st = self.statics
         cfg = self.cfg
         r = states.robots
@@ -667,12 +667,8 @@ class NavEnv:
             peds, crowd_aux = states.peds, states.crowd_aux
         else:
             with trace.span("env.crowd"):
-                per_scene = [self._crowd_step(
-                    map_tree(lambda x, k=k: x[k], states),
-                    sources[k * n:(k + 1) * n], radii[k * n:(k + 1) * n])
-                    for k in range(s)]
-                peds = stack_trees([p for p, _ in per_scene])
-                crowd_aux = stack_trees([a for _, a in per_scene])
+                peds, crowd_aux = self._crowd_step(
+                    states, sources.reshape(s, n, 2), radii.reshape(s, n))
         unflat = lambda x: x.reshape((s, n) + x.shape[1:])
         with trace.span("env.dynamics"):
             pose, l0, l1, vel, arrive_new = (
@@ -690,33 +686,41 @@ class NavEnv:
                                 crowd_aux=crowd_aux, step=states.step + 1),
                 alive, beeps)
 
-    def _crowd_step(self, state: WorldState, sources, radii):
-        """Peds and the robot mirrors' crowd velocities after one crowd
-        step (the JAX package's ``_crowd_step``): the crowd model, then the
-        gait.  ``sources``/``radii``: this step's beeps ([N,2], [N])."""
-        cfg = self.cfg
-        m = cfg.ped_sim.total
-        peds, aux = state.peds, state.crowd_aux
-        if m == 0 or self.scene_type in ("none", ""):
-            return peds, aux
+    def _crowd_step(self, states: WorldState, sources, radii):
+        """Peds and the robot mirrors' crowd velocities of S scenes after
+        one crowd step (the JAX package's ``_crowd_step``, vmapped over the
+        scenes): the crowd model, then the gait, on states with a leading
+        [S] axis.  ``sources``/``radii``: this step's beeps ([S,N,2],
+        [S,N]).  SFM and the dataset replay step every scene at once
+        (counter ``crowd.scenes``); ORCA solves scene by scene (counter
+        ``crowd.scene_loops``), with the goals and the gait batched around
+        it."""
+        peds, aux = states.peds, states.crowd_aux
+        s = peds.pos.shape[0]
         goals, new_idx = crowd_common.advance_traj_goals(
             peds.pos, peds.traj, peds.traj_len, peds.traj_idx)
         if self.scene_type == "pedscene":
-            new_pos, new_vel, peds, aux = self._sfm_step(state)
+            trace.count("crowd.scenes", s)
+            new_pos, new_vel, peds, aux = self._sfm_step(states)
         elif self.scene_type == "dataset":
+            trace.count("crowd.scenes", s)
             # verbatim replay: the k-th step after reset replays index k
             # (step_ increments only at the end of _step,
             # img_env.cpp:361-386, 518)
             new_pos, new_vel, _ = crowd_common.dataset_replay(
-                state.step, peds.dataset_traj, peds.dataset_vel,
+                states.step, peds.dataset_traj, peds.dataset_vel,
                 peds.dataset_len)
         else:   # rvoscene / ervoscene
-            new_pos, new_vel = self._orca_step(
-                state, goals, *((sources, radii)
-                                if self.scene_type == "ervoscene"
-                                else (None, None)))
+            trace.count("crowd.scene_loops", s)
+            evac = self.scene_type == "ervoscene"
+            per_scene = [self._orca_step(
+                map_tree(lambda x, k=k: x[k], states), goals[k],
+                *((sources[k], radii[k]) if evac else (None, None)))
+                for k in range(s)]
+            new_pos = torch.stack([p for p, _ in per_scene])
+            new_vel = torch.stack([v for _, v in per_scene])
         ct = self.crowd
-        yaw = torch.atan2(new_vel[:, 1], new_vel[:, 0])
+        yaw = torch.atan2(new_vel[..., 1], new_vel[..., 0])
         move = f32.sqrt(((new_pos - peds.pos) ** 2).sum(-1))
         gstate, gres, legs = gait_mod.update_gait(
             peds.gait_state, peds.gait_residual, move, ct.rest_left,
@@ -727,7 +731,7 @@ class NavEnv:
             leg_offset=legs), aux
 
     def _orca_step(self, state: WorldState, goals, sources, radii):
-        """ORCA over the peds, with the robots as neighbours when
+        """ORCA over one scene's peds, with the robots as neighbours when
         ``relation_ped_robo`` is 1 (their world velocities), against the
         reset's split segments, or the raw rectangle edges when the reset
         built none.  Every ped solves with the ORCA radius (0.5), not its
@@ -751,41 +755,44 @@ class NavEnv:
             ct.sfm_valid[m:m + n_nb], self.statics.orca_cfg, seg,
             evac_sources=sources, evac_radii=radii)
 
-    def _sfm_step(self, state: WorldState):
-        """The pedscene model: peds + robot mirrors as one SFM population;
-        the pedsim queue is [goal (r=1)] + trajectory (pedscene.h:39-47)
-        and its fetch head travels in the sfm_lastdest slot.  Returns (pos,
-        vel, peds with the queue state, crowd aux)."""
+    def _sfm_step(self, states: WorldState):
+        """The pedscene model over S scenes: in each, peds + robot mirrors
+        as one SFM population [S, M+N] against the scene's own obstacle
+        segments; the pedsim queue is [goal (r=1)] + trajectory
+        (pedscene.h:39-47) and its fetch head travels in the sfm_lastdest
+        slot.  Returns (pos, vel, peds with the queue state, crowd aux)."""
         cfg = self.cfg
         ct = self.crowd
         m, n = cfg.ped_sim.total, cfg.robot.total
-        peds, aux, rob = state.peds, state.crowd_aux, state.robots
-        zi = torch.zeros((n,), dtype=torch.int32, device=self.device)
-        wq = 1 + peds.traj.shape[1]
+        peds, aux, rob = states.peds, states.crowd_aux, states.robots
+        s = peds.pos.shape[0]
+        zi = torch.zeros((s, n), dtype=torch.int32, device=self.device)
+        wq = 1 + peds.traj.shape[-2]
+        wp_r = torch.cat([ct.wp_r, ct.wp_r.new_zeros((n, wq))])
         wp = sfm_mod.SfmWaypointState(
             wp_xy=torch.cat([
-                torch.cat([peds.goal[:, None], peds.traj], 1),
-                peds.traj.new_zeros((n, wq, 2))]),
-            wp_r=torch.cat([ct.wp_r, ct.wp_r.new_zeros((n, wq))]),
-            wp_len=torch.cat([1 + peds.traj_len, zi]),
-            dest_idx=torch.cat([peds.sfm_wp_idx, zi]),
-            head=torch.cat([peds.sfm_lastdest, zi]),
+                torch.cat([peds.goal[:, :, None], peds.traj], 2),
+                peds.traj.new_zeros((s, n, wq, 2))], 1),
+            wp_r=wp_r.expand((s,) + wp_r.shape),
+            wp_len=torch.cat([1 + peds.traj_len, zi], 1),
+            dest_idx=torch.cat([peds.sfm_wp_idx, zi], 1),
+            head=torch.cat([peds.sfm_lastdest, zi], 1),
             has_dest=torch.cat([peds.sfm_has_dest,
-                                torch.zeros_like(zi, dtype=torch.bool)]))
-        aabb = state.obstacles.aabb
-        seg_valid = torch.full((aabb.shape[0],),
+                                torch.zeros_like(zi, dtype=torch.bool)], 1))
+        aabb = states.obstacles.aabb                    # [S, O, 4]
+        seg_valid = torch.full((aabb.shape[-2],),
                                not cfg.ped_sim.ignore_obstacle,
                                dtype=torch.bool, device=self.device)
         all_pos, all_vel, new_wp = sfm_mod.sfm_step(
-            torch.cat([peds.pos, rob.pose[:, :2]]),
-            torch.cat([peds.vel, aux.robot_vel]),
-            ct.sfm_vmax, ct.sfm_valid, wp, aabb[:, :2], aabb[:, 2:],
+            torch.cat([peds.pos, rob.pose[..., :2]], 1),
+            torch.cat([peds.vel, aux.robot_vel], 1),
+            ct.sfm_vmax, ct.sfm_valid, wp, aabb[..., :2], aabb[..., 2:],
             seg_valid, float(cfg.control_hz))
-        peds = peds._replace(sfm_wp_idx=new_wp.dest_idx[:m],
-                             sfm_has_dest=new_wp.has_dest[:m],
-                             sfm_lastdest=new_wp.head[:m])
-        return (all_pos[:m], all_vel[:m], peds,
-                CrowdAuxState(robot_vel=all_vel[m:]))
+        peds = peds._replace(sfm_wp_idx=new_wp.dest_idx[:, :m],
+                             sfm_has_dest=new_wp.has_dest[:, :m],
+                             sfm_lastdest=new_wp.head[:, :m])
+        return (all_pos[:, :m], all_vel[:, :m], peds,
+                CrowdAuxState(robot_vel=all_vel[:, m:]))
 
     # ------------------------------------------------------------------
     def _sensor_pass(self, packed, poses):

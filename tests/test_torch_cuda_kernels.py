@@ -8,7 +8,9 @@ peds on the +-3 m window edge, exact range ties, no ped in any window and
 600 in one (K4); the gen-1 block painter with wide slots (K5); and the
 scenario sampler on a CUDA generator.  The scene batch: K1 over S = 1, 3
 and 16 scenes in one launch, K2 with explicit in-scene ids (a sensor
-group's robots), K3 and K5 on a fast-mode grid's tables.
+group's robots), K3 and K5 on a fast-mode grid's tables.  The crowd of a
+50-scene batch stepped at once against 50 one-scene steps, and its
+device operations.
 
 These need an NVIDIA GPU and nvcc and skip without them.  On the machine
 with the card (which has no JAX) run them without the JAX test conftest:
@@ -422,3 +424,58 @@ def test_span_holds_the_kernel_launch(dev):
     assert lo <= call.start_ns()
     assert call.start_ns() + call.duration_ns() <= hi
     assert lo <= kernel.start_ns()
+
+
+def test_batched_crowd_step_on_the_card(dev):
+    """The crowd of a 50-scene stage-5 batch (5 SFM leg peds, 1 robot
+    mirror and 10 obstacles a scene), stepped at once, equals the 50
+    scenes stepped one at a time (S=1) bit for bit, after five steps that
+    spread the scenes' queues and gaits; one batched step issues at most
+    1,000 device operations, as many as one scene's step."""
+    import json
+    import os
+
+    import img_env_tpu_torch
+    from img_env_tpu_torch.core.state import map_tree, stack_trees
+    from img_env_tpu_torch.env.nav_env import NavEnv
+
+    path = os.path.join(os.path.dirname(img_env_tpu_torch.__file__),
+                        "artifacts", "stage5_policy_env.json")
+    with open(path) as f:
+        core = NavEnv(EnvConfig.from_dict(json.load(f)), dev, seed=3)
+    s, n = 50, core.cfg.robot.total
+    states = stack_trees([core.reset_state_fn() for _ in range(s)])
+    src = torch.zeros((s, n, 2), device=dev)
+    rad = torch.zeros((s, n), device=dev)
+
+    def crowd(st):
+        k = st.step.shape[0]
+        peds, aux = core._crowd_step(st, src[:k], rad[:k])
+        return st._replace(peds=peds, crowd_aux=aux)
+
+    def leaves(st):
+        out = []
+        map_tree(out.append, st.peds)
+        map_tree(out.append, st.crowd_aux)
+        return out
+
+    for _ in range(5):
+        states = crowd(states)
+    got = leaves(crowd(states))
+    for k in range(s):
+        want = leaves(crowd(map_tree(lambda x: x[k:k + 1], states)))
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g[k:k + 1], w), (k, i)
+
+    def ops(st):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            crowd(st)
+            torch.cuda.synchronize()
+        return sum(e.device_type() == torch.autograd.DeviceType.CUDA
+                   for e in prof.profiler.kineto_results.events())
+
+    batched = ops(states)
+    assert 0 < batched <= 1000
+    assert batched == ops(map_tree(lambda x: x[:1], states))

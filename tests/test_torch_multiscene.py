@@ -26,6 +26,8 @@ from img_env_tpu.env.sampler import sample_scenario_retry
 from img_env_tpu.parallel.batched_env import BatchedNavEnv as JaxBatchedNavEnv
 from img_env_tpu_torch.config import EnvConfig
 from img_env_tpu_torch.core.convert import world_state_from_numpy
+from img_env_tpu_torch.core.state import map_tree, stack_trees
+from img_env_tpu_torch.crowd import sfm
 from img_env_tpu_torch.env.sampler import ScenarioSample
 from img_env_tpu_torch.parallel import BatchedNavEnv
 from tests.test_multiscene_flat import OBS_FIELDS
@@ -213,3 +215,165 @@ def test_batch_matches_jax_through_steps_and_carried_reset(pair):
         np.testing.assert_array_equal(getattr(states2_t.peds, f).numpy(),
                                       np.asarray(getattr(states2_j.peds, f)),
                                       err_msg=f)
+
+
+# ----------------------------------------------------------------------
+# The crowd of S scenes stepped at once against the same scenes stepped
+# one at a time (S=1), in torch alone.  Every crowd operation is
+# elementwise per scene or reduces an axis (the 2 coordinates, the
+# scene's agents, its segments) of the same length in the same order, so
+# the batch is bit-equal to S=1 calls wherever each element is computed
+# alike: on the card (tests/test_torch_cuda_kernels.py holds that), and
+# here for the unbatched call against S=1 (the same sizes).  Torch's CPU
+# kernel evaluates atan2 with a SIMD polynomial in the body of its loop
+# and with libm in its tail (they differ in the last bit for ~16% of
+# arguments), so an element's bits depend on its place in the tensor,
+# and a tensor of 3 scenes places it elsewhere than one of 1: the floats
+# of the batched env step are held to the pedscene crowd tolerance
+# (CROWD_TOL, 1e-5), integers and flags exactly.
+
+BATCH_STEPS = 4
+
+
+def _leaves(tree):
+    if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
+        return [x for part in tree for x in _leaves(part)]
+    out = []
+    map_tree(out.append, tree)
+    return out
+
+
+def _assert_bits(got, want, what):
+    for k, (g, w) in enumerate(zip(_leaves(got), _leaves(want))):
+        assert g.dtype == w.dtype and torch.equal(g, w), (what, k)
+
+
+def _assert_crowd_close(got, want, what):
+    for k, (g, w) in enumerate(zip(_leaves(got), _leaves(want))):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, k)
+        if g.is_floating_point():
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=CROWD_TOL["pedscene"][0],
+                                       err_msg=f"{what}, leaf {k}")
+        else:
+            assert torch.equal(g, w), (what, k)
+
+
+def _steps_match_scene_by_scene(benv, states):
+    """BATCH_STEPS batch steps against each scene's own S=1 steps from the
+    same start: peds, crowd velocities and robots."""
+    s = states.step.shape[0]
+    g = torch.Generator().manual_seed(17)
+    one = [map_tree(lambda x, k=k: x[k:k + 1], states) for k in range(s)]
+    for t in range(BATCH_STEPS):
+        acts = torch.as_tensor(ACTS[:s]) * (1.0 + 0.5 * t)
+        beep_u = torch.rand((s, acts.shape[1]), generator=g)
+        states = benv.step(states, acts, beep_u)[0]
+        one = [benv.step(x, acts[k:k + 1], beep_u[k:k + 1])[0]
+               for k, x in enumerate(one)]
+        want = stack_trees([map_tree(lambda x: x[0], x) for x in one])
+        for part in ("peds", "crowd_aux", "robots"):
+            _assert_crowd_close(getattr(states, part), getattr(want, part),
+                                f"{part} at step {t}")
+    return states
+
+
+def _pedscene_batch():
+    """Three pedscene scenes that differ in every part of the crowd's
+    bookkeeping: scene 0's peds head-on (the look-ahead force); scene 1's
+    at rest, one needing a fetch from a wrapped head, on its second
+    trajectory slot; scene 2's first ped on its goal (the r=1 arrival),
+    its second on a trajectory waypoint, its robots done (one arrived,
+    one collided) with crowd velocities left."""
+    benv = BatchedNavEnv(port_cfg((2, "pedscene", True)), "cpu", seed=11)
+    states, _ = benv.reset(3)
+    p, r = states.peds, states.robots
+    at_rest = torch.tensor([1.0, 0.0, 1.0])[:, None, None]
+    pos, goal, vel = p.pos.clone(), p.goal.clone(), p.vel + 0.2 * at_rest
+    pos[0] = torch.tensor([[3.0, 5.0], [5.0, 5.1]])
+    goal[0] = torch.tensor([[8.0, 5.0], [1.5, 5.1]])
+    vel[0] = torch.tensor([[0.4, 0.0], [-0.4, 0.0]])
+    pos[2, 0] = goal[2, 0] + 0.3
+    peds = p._replace(
+        pos=pos, goal=goal, vel=vel,
+        sfm_has_dest=torch.tensor([[True, True], [False, True],
+                                   [True, True]]),
+        sfm_lastdest=torch.tensor([[-1, -1], [5, -1], [-1, 1]],
+                                  dtype=torch.int32),
+        sfm_wp_idx=torch.tensor([[0, 0], [0, 0], [0, 2]], dtype=torch.int32),
+        traj_idx=torch.tensor([[0, 0], [1, 0], [0, 1]], dtype=torch.int32),
+        gait_state=torch.tensor([[0, 3], [6, 1], [4, 5]], dtype=torch.int32))
+    robots = r._replace(
+        arrive=torch.tensor([[False, False], [False, False], [True, False]]),
+        collision=torch.tensor([[0, 0], [0, 0], [0, 1]], dtype=torch.int32))
+    aux = states.crowd_aux._replace(
+        robot_vel=torch.linspace(-0.3, 0.4, 12).reshape(3, 2, 2))
+    return benv, states._replace(peds=peds, robots=robots, crowd_aux=aux)
+
+
+def _dataset_batch():
+    """Three replayed scenes, each with its own series (lengths that end
+    before, at and after the steps taken) and its own step index."""
+    benv = BatchedNavEnv(port_cfg((2, "dataset", True)), "cpu", seed=12)
+    core = benv.core
+    g = torch.Generator().manual_seed(3)
+    parts = []
+    for k, lens in enumerate(([7, 3], [2, 7], [5, 7])):
+        traj = 2.0 + 6.0 * torch.rand((2, 7, 2), generator=g)
+        vel = torch.rand((2, 7, 2), generator=g) - 0.5
+        parts.append(core.reset_state_fn(
+            core.sample_scenario(), None,
+            (traj, vel, torch.tensor(lens, dtype=torch.int32))))
+    states, _ = core.observe_scenes(stack_trees(parts))
+    return benv, states._replace(
+        step=torch.tensor([0, 2, 5], dtype=torch.int32))
+
+
+def _sfm_population(a=7, o=4, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=g)
+    wp_len = torch.tensor([2, 3, 1, 2, 0, 0, 3], dtype=torch.int32)[:a]
+    wp = sfm.SfmWaypointState(
+        wp_xy=1.0 + 8.0 * u(a, 3, 2), wp_r=(u(a, 3) < 0.5).float(),
+        wp_len=wp_len,
+        dest_idx=torch.tensor([0, 2, 0, 1, 0, 0, 1], dtype=torch.int32)[:a],
+        head=torch.tensor([-1, 4, 0, 1, 0, 0, 2], dtype=torch.int32)[:a],
+        has_dest=torch.tensor([True, False, True, False, False, False,
+                               True])[:a])
+    seg_a = 2.0 + 6.0 * u(o, 2)
+    return (2.0 + 6.0 * u(a, 2), u(a, 2) - 0.5, 0.4 + 0.8 * u(a),
+            torch.tensor([True] * (a - 1) + [False]), wp, seg_a,
+            seg_a + u(o, 2) - 0.5, torch.tensor([True, False, True, True]))
+
+
+def _check_sfm_unbatched():
+    """The MPC 'sfm' head's unbatched call [A, ...] against the S=1 call."""
+    pos, vel, vmax, valid, wp, seg_a, seg_b, seg_valid = _sfm_population()
+    one = lambda x: x[None]
+    bpos, bvel, bwp = one(pos), one(vel), map_tree(one, wp)
+    for t in range(BATCH_STEPS):
+        pos, vel, wp = sfm.sfm_step(pos, vel, vmax, valid, wp, seg_a, seg_b,
+                                    seg_valid, 0.4)
+        bpos, bvel, bwp = sfm.sfm_step(
+            bpos, bvel, one(vmax), one(valid), bwp, one(seg_a), one(seg_b),
+            one(seg_valid), 0.4)
+        _assert_bits((bpos[0], bvel[0]), (pos, vel), f"step {t}")
+        _assert_bits(map_tree(lambda x: x[0], bwp), wp, f"queue {t}")
+    assert not torch.equal(pos, _sfm_population()[0])
+
+
+@pytest.mark.parametrize("case", ["pedscene", "dataset", "sfm_unbatched"])
+def test_batched_crowd_matches_scene_by_scene(case):
+    if case == "sfm_unbatched":
+        _check_sfm_unbatched()
+        return
+    benv, states = (_pedscene_batch if case == "pedscene"
+                    else _dataset_batch)()
+    final = _steps_match_scene_by_scene(benv, states)
+    # the steps moved the crowd, and the scenes apart
+    assert not torch.equal(final.peds.pos, states.peds.pos)
+    assert not torch.equal(final.peds.pos[0], final.peds.pos[1])
+    if case == "dataset":
+        np.testing.assert_array_equal(final.step.numpy(),
+                                      [BATCH_STEPS, 2 + BATCH_STEPS,
+                                       5 + BATCH_STEPS])

@@ -2,7 +2,7 @@
 off by default and recording nothing then; the env step, the scene
 batch's step and redraw, the MPC act and the policy giving the same bits
 with tracing on and off; the span tree at the layer boundaries; the
-redraw counter; ``drain`` clearing.  A small config with SFM peds on the
+redraw and crowd counters; ``drain`` clearing.  A small config with SFM peds on the
 CPU (the kernels' twins).  Imports nothing of JAX."""
 
 import pytest
@@ -151,7 +151,7 @@ def test_env_span_tree():
     assert tree["env.observe"] == {None, "env.step"}
     for name in ("env.raster", "env.sensor", "env.peds"):
         assert tree[name] == {"env.observe"}
-    assert counts == {}
+    assert counts == {"crowd.scenes": 1}      # the one scene's crowd
 
 
 def test_batch_span_tree_and_redraw_counter():
@@ -167,7 +167,7 @@ def test_batch_span_tree_and_redraw_counter():
     assert tree["env.observe"] == {"batch.reset_local", "env.step"}
     names = [s[0] for s in spans]
     assert names.count("batch.reset_local") == 2    # reset(S), then 2 redrawn
-    assert counts == {"reset.scenes": S + 2}
+    assert counts == {"reset.scenes": S + 2, "crowd.scenes": S}
 
 
 def test_batch_without_peds_has_no_crowd_span():
@@ -180,6 +180,27 @@ def test_batch_without_peds_has_no_crowd_span():
     assert {"env.step", "env.advance", "env.dynamics", "env.observe",
             "env.raster", "env.sensor"} <= names
     assert not names & {"env.crowd", "env.peds"}
+
+
+@pytest.mark.parametrize("scene,on,want", [
+    ("pedscene", True, {"crowd.scenes": S}),
+    ("rvoscene", True, {"crowd.scene_loops": S}),
+    ("pedscene", False, {}),
+    ("rvoscene", False, {})], ids=["pedscene", "rvoscene", "pedscene-off",
+                                   "rvoscene-off"])
+def test_crowd_engagement_counters(scene, on, want):
+    """One batch step of S scenes counts its scenes once: ``crowd.scenes``
+    where the crowd steps them at once (SFM), ``crowd.scene_loops`` where
+    ORCA solves them one by one; nothing with tracing off."""
+    d = dict(CFG, ped_sim=dict(CFG["ped_sim"], type=scene))
+    benv = BatchedNavEnv(EnvConfig.from_dict(d), "cpu", seed=5)
+    states, _ = benv.reset(S)
+    if on:
+        trace.enable()
+    benv.step(states, ACT.expand(S, -1, -1))
+    spans, counts = trace.drain()
+    assert counts == want
+    assert bool(spans) == on
 
 
 def test_mpc_span_tree():
@@ -242,7 +263,7 @@ def test_drain_clears_and_disable_stops():
     run_env_step()
     trace.count("reset.scenes", 2)
     spans, counts = trace.drain()
-    assert spans and counts == {"reset.scenes": 2}
+    assert spans and counts == {"reset.scenes": 2, "crowd.scenes": 1}
     assert trace.drain() == ([], {})
     trace.disable()
     run_env_step()

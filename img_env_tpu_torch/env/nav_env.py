@@ -531,8 +531,9 @@ class NavEnv:
         segs = None
         if (self.scene_type in ("rvoscene", "ervoscene") and m > 0
                 and not cfg.ped_sim.ignore_obstacle and aabb.shape[0] > 0):
-            segs, _ = split_segments(
-                aabb, torch.ones(aabb.shape[0], dtype=torch.bool, device=dev))
+            with trace.span("reset.split"):
+                segs, _ = split_segments(aabb, torch.ones(
+                    aabb.shape[0], dtype=torch.bool, device=dev))
         obstacles = ObstacleState(
             pose=obs_pose, size=z(obs_pose.shape[0], 4),
             is_circle=is_circ, aabb=aabb, segs=segs)
@@ -693,8 +694,9 @@ class NavEnv:
         [S] axis.  ``sources``/``radii``: this step's beeps ([S,N,2],
         [S,N]).  SFM and the dataset replay step every scene at once
         (counter ``crowd.scenes``); ORCA solves scene by scene (counter
-        ``crowd.scene_loops``), with the goals and the gait batched around
-        it."""
+        ``crowd.scene_loops``, a span ``crowd.orca`` a scene, counter
+        ``orca.agents`` +M a scene), with the goals and the gait batched
+        around it."""
         peds, aux = states.peds, states.crowd_aux
         s = peds.pos.shape[0]
         goals, new_idx = crowd_common.advance_traj_goals(
@@ -712,11 +714,14 @@ class NavEnv:
                 peds.dataset_len)
         else:   # rvoscene / ervoscene
             trace.count("crowd.scene_loops", s)
+            trace.count("orca.agents", s * peds.pos.shape[1])
             evac = self.scene_type == "ervoscene"
-            per_scene = [self._orca_step(
-                map_tree(lambda x, k=k: x[k], states), goals[k],
-                *((sources[k], radii[k]) if evac else (None, None)))
-                for k in range(s)]
+            per_scene = []
+            for k in range(s):
+                with trace.span("crowd.orca"):
+                    per_scene.append(self._orca_step(
+                        map_tree(lambda x, k=k: x[k], states), goals[k],
+                        *((sources[k], radii[k]) if evac else (None, None))))
             new_pos = torch.stack([p for p, _ in per_scene])
             new_vel = torch.stack([v for _, v in per_scene])
         ct = self.crowd

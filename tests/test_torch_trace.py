@@ -2,8 +2,9 @@
 off by default and recording nothing then; the env step, the scene
 batch's step and redraw, the MPC act and the policy giving the same bits
 with tracing on and off; the span tree at the layer boundaries; the
-redraw and crowd counters; ``drain`` clearing.  A small config with SFM peds on the
-CPU (the kernels' twins).  Imports nothing of JAX."""
+redraw, crowd and ORCA counters, and the ORCA spans of the ``rvoscene``
+and ``ervoscene`` crowds; ``drain`` clearing.  A small config with SFM
+peds on the CPU (the kernels' twins).  Imports nothing of JAX."""
 
 import pytest
 import torch
@@ -184,14 +185,15 @@ def test_batch_without_peds_has_no_crowd_span():
 
 @pytest.mark.parametrize("scene,on,want", [
     ("pedscene", True, {"crowd.scenes": S}),
-    ("rvoscene", True, {"crowd.scene_loops": S}),
+    ("rvoscene", True, {"crowd.scene_loops": S, "orca.agents": 2 * S}),
     ("pedscene", False, {}),
     ("rvoscene", False, {})], ids=["pedscene", "rvoscene", "pedscene-off",
                                    "rvoscene-off"])
 def test_crowd_engagement_counters(scene, on, want):
     """One batch step of S scenes counts its scenes once: ``crowd.scenes``
     where the crowd steps them at once (SFM), ``crowd.scene_loops`` where
-    ORCA solves them one by one; nothing with tracing off."""
+    ORCA solves them one by one (with ``orca.agents``, its peds); nothing
+    with tracing off."""
     d = dict(CFG, ped_sim=dict(CFG["ped_sim"], type=scene))
     benv = BatchedNavEnv(EnvConfig.from_dict(d), "cpu", seed=5)
     states, _ = benv.reset(S)
@@ -201,6 +203,51 @@ def test_crowd_engagement_counters(scene, on, want):
     spans, counts = trace.drain()
     assert counts == want
     assert bool(spans) == on
+
+
+def run_orca_batch(scene):
+    """S scenes of an ORCA crowd reset (the split) and stepped once, every
+    beeping robot answered (``ervoscene``: the evacuation term)."""
+    d = dict(CFG, ped_sim=dict(CFG["ped_sim"], type=scene))
+    benv = BatchedNavEnv(EnvConfig.from_dict(d), "cpu", seed=5)
+    states, _ = benv.reset(S)
+    out = benv.step(states, ACT.expand(S, -1, -1),
+                    beep_u=torch.zeros(S, ACT.shape[0]))
+    return states, out[:4]
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["on", "off"])
+@pytest.mark.parametrize("scene", ["rvoscene", "ervoscene"])
+def test_orca_spans_and_counters(scene, on):
+    """``reset.split`` around each reset scene's kd-tree split, a
+    ``crowd.orca`` span a scene inside ``env.crowd`` holding ``orca.lines``
+    and ``orca.solve``; counters ``orca.segments`` (the split's segments)
+    and ``orca.agents`` (+M a scene solved); the same bits on and off."""
+    off = leaves(run_orca_batch(scene))
+    if on:
+        trace.enable()
+    states, out = run_orca_batch(scene)
+    trace.disable()
+    spans, counts = trace.drain()
+    got = leaves((states, out))
+    assert len(got) == len(off) > 0
+    for a, b in zip(got, off):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if not on:
+        assert (spans, counts) == ([], {})
+        return
+    tree = tree_of(spans)
+    assert tree["reset.split"] == {"reset.states"}
+    assert tree["crowd.orca"] == {"env.crowd"}
+    assert tree["orca.lines"] == {"crowd.orca"}
+    assert tree["orca.solve"] == {"crowd.orca"}
+    names = [s[0] for s in spans]
+    for name in ("reset.split", "crowd.orca", "orca.lines", "orca.solve"):
+        assert names.count(name) == S
+    segments = int(states.obstacles.segs.valid.sum())
+    assert segments >= 4 * 3 * S        # the 3 rectangles' edges, split
+    assert counts == {"reset.scenes": S, "orca.segments": segments,
+                      "crowd.scene_loops": S, "orca.agents": 2 * S}
 
 
 def test_mpc_span_tree():

@@ -964,7 +964,9 @@ def orca_step_cost(env, state):
         generator=env.generator)
     goals, _ = common.advance_traj_goals(p.pos, p.traj, p.traj_len,
                                          p.traj_idx)
-    step = lambda: env._orca_step(state, goals, sources, radii)
+    one = scene_axis(state)
+    step = lambda: env._orca_step(one, goals[None], sources[None],
+                                  radii[None])
     step()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,

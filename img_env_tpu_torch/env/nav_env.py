@@ -692,20 +692,18 @@ class NavEnv:
         one crowd step (the JAX package's ``_crowd_step``, vmapped over the
         scenes): the crowd model, then the gait, on states with a leading
         [S] axis.  ``sources``/``radii``: this step's beeps ([S,N,2],
-        [S,N]).  SFM and the dataset replay step every scene at once
-        (counter ``crowd.scenes``); ORCA solves scene by scene (counter
-        ``crowd.scene_loops``, a span ``crowd.orca`` a scene, counter
-        ``orca.agents`` +M a scene), with the goals and the gait batched
-        around it."""
+        [S,N]).  Every crowd model steps all scenes at once (counter
+        ``crowd.scenes`` +S): SFM, the dataset replay, and ORCA in one
+        solve under one ``crowd.orca`` span (counter ``orca.agents``
+        +S*M); the goals and the gait are batched around them."""
         peds, aux = states.peds, states.crowd_aux
         s = peds.pos.shape[0]
         goals, new_idx = crowd_common.advance_traj_goals(
             peds.pos, peds.traj, peds.traj_len, peds.traj_idx)
+        trace.count("crowd.scenes", s)
         if self.scene_type == "pedscene":
-            trace.count("crowd.scenes", s)
             new_pos, new_vel, peds, aux = self._sfm_step(states)
         elif self.scene_type == "dataset":
-            trace.count("crowd.scenes", s)
             # verbatim replay: the k-th step after reset replays index k
             # (step_ increments only at the end of _step,
             # img_env.cpp:361-386, 518)
@@ -713,17 +711,12 @@ class NavEnv:
                 states.step, peds.dataset_traj, peds.dataset_vel,
                 peds.dataset_len)
         else:   # rvoscene / ervoscene
-            trace.count("crowd.scene_loops", s)
             trace.count("orca.agents", s * peds.pos.shape[1])
-            evac = self.scene_type == "ervoscene"
-            per_scene = []
-            for k in range(s):
-                with trace.span("crowd.orca"):
-                    per_scene.append(self._orca_step(
-                        map_tree(lambda x, k=k: x[k], states), goals[k],
-                        *((sources[k], radii[k]) if evac else (None, None))))
-            new_pos = torch.stack([p for p, _ in per_scene])
-            new_vel = torch.stack([v for _, v in per_scene])
+            if self.scene_type != "ervoscene":
+                sources = radii = None
+            with trace.span("crowd.orca"):
+                new_pos, new_vel = self._orca_step(states, goals, sources,
+                                                   radii)
         ct = self.crowd
         yaw = torch.atan2(new_vel[..., 1], new_vel[..., 0])
         move = f32.sqrt(((new_pos - peds.pos) ** 2).sum(-1))
@@ -735,28 +728,30 @@ class NavEnv:
             traj_idx=new_idx, gait_state=gstate, gait_residual=gres,
             leg_offset=legs), aux
 
-    def _orca_step(self, state: WorldState, goals, sources, radii):
-        """ORCA over one scene's peds, with the robots as neighbours when
-        ``relation_ped_robo`` is 1 (their world velocities), against the
+    def _orca_step(self, states: WorldState, goals, sources, radii):
+        """ORCA over the peds of S scenes (states with a leading [S] axis,
+        goals [S,M,2]; beep ``sources``/``radii`` [S,N,2]/[S,N] or None),
+        each scene with its robots as neighbours when
+        ``relation_ped_robo`` is 1 (their world velocities), against its
         reset's split segments, or the raw rectangle edges when the reset
         built none.  Every ped solves with the ORCA radius (0.5), not its
         body radius."""
         cfg = self.cfg
         ct = self.crowd
         m = cfg.ped_sim.total
-        peds, rob = state.peds, state.robots
-        seg = state.obstacles.segs
+        peds, rob = states.peds, states.robots
+        seg = states.obstacles.segs
         if seg is None:
-            aabb = state.obstacles.aabb
+            aabb = states.obstacles.aabb                # [S, O, 4]
             seg = orca_mod.segments_from_aabbs(aabb, torch.full(
-                (aabb.shape[0],), not cfg.ped_sim.ignore_obstacle,
+                aabb.shape[:-1], not cfg.ped_sim.ignore_obstacle,
                 dtype=torch.bool, device=self.device))
         rel = int(cfg.relation_ped_robo) == 1
         n_nb = cfg.robot.total if rel else 0
         return orca_mod.orca_step(
             peds.pos, peds.vel, orca_mod.pref_velocity(peds.pos, goals),
             ct.orca_radius, ct.max_speed, ct.sfm_valid[:m],
-            rob.pose[:n_nb, :2], rob.vel_world[:n_nb],
+            rob.pose[:, :n_nb, :2], rob.vel_world[:, :n_nb],
             ct.sfm_valid[m:m + n_nb], self.statics.orca_cfg, seg,
             evac_sources=sources, evac_radii=radii)
 

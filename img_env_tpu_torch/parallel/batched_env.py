@@ -7,8 +7,7 @@ replacement for the reference's one-ROS-node-per-scene fan-out
 tensor.  The robot dynamics and the sensor pipeline run flat over the S*N
 robots (``NavEnv.advance_scenes`` / ``NavEnv.observe_scenes``): one K1
 launch rasters every scene, K2 and K3 run once per sensor group, K4 once.
-The crowd steps every scene at once (SFM, the replay, the gait; ORCA's
-solve alone goes scene by scene).
+The crowd steps every scene at once (SFM, ORCA, the replay, the gait).
 
     env = BatchedNavEnv(cfg, device="cuda")
     states, obs = env.reset(4)                      # 4 scenes

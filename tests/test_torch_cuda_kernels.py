@@ -8,9 +8,9 @@ peds on the +-3 m window edge, exact range ties, no ped in any window and
 600 in one (K4); the gen-1 block painter with wide slots (K5); and the
 scenario sampler on a CUDA generator.  The scene batch: K1 over S = 1, 3
 and 16 scenes in one launch, K2 with explicit in-scene ids (a sensor
-group's robots), K3 and K5 on a fast-mode grid's tables.  The crowd of a
-50-scene batch stepped at once against 50 one-scene steps, and its
-device operations.
+group's robots), K3 and K5 on a fast-mode grid's tables.  The SFM and
+the ORCA crowds of 50-scene batches stepped at once against 50 one-scene
+steps, and their device operations.
 
 These need an NVIDIA GPU and nvcc and skip without them.  On the machine
 with the card (which has no JAX) run them without the JAX test conftest:
@@ -479,3 +479,70 @@ def test_batched_crowd_step_on_the_card(dev):
     batched = ops(states)
     assert 0 < batched <= 1000
     assert batched == ops(map_tree(lambda x: x[:1], states))
+
+
+def test_batched_orca_crowd_step_on_the_card(dev):
+    """The ORCA crowd of a 50-scene ERVO batch (8 leg peds, 1 robot
+    mirror and its split segments a scene), solved at once, equals the 50
+    scenes solved one at a time (S=1) bit for bit, after three steps that
+    spread the scenes and then with every robot's beep answered (the
+    evacuation term); one batched step issues at most 2,000 device
+    operations, about one scene's."""
+    import json
+    import os
+
+    import img_env_tpu_torch
+    from img_env_tpu_torch.core.state import map_tree, stack_trees
+    from img_env_tpu_torch.crowd import common
+    from img_env_tpu_torch.env.nav_env import NavEnv
+
+    path = os.path.join(os.path.dirname(img_env_tpu_torch.__file__),
+                        "artifacts", "ervo_policy_env.json")
+    with open(path) as f:
+        core = NavEnv(EnvConfig.from_dict(json.load(f)), dev, seed=3)
+    s, n = 50, core.cfg.robot.total
+    states = stack_trees([core.reset_state_fn() for _ in range(s)])
+    assert states.obstacles.segs is not None
+    quiet = (torch.zeros((s, n, 2), device=dev),
+             torch.zeros((s, n), device=dev))
+    src, rad, beeps = common.sample_beeps(
+        states.robots.pose.reshape(s * n, 3), torch.ones(s * n, device=dev),
+        float(core.cfg.beep_r), float(core.cfg.ped_ca_p),
+        u=torch.zeros(s * n, device=dev))
+    assert int(beeps.sum()) == s * n
+    loud = (src.reshape(s, n, 2), rad.reshape(s, n))
+
+    def crowd(st, beep):
+        k = st.step.shape[0]
+        peds, aux = core._crowd_step(st, beep[0][:k], beep[1][:k])
+        return st._replace(peds=peds, crowd_aux=aux)
+
+    def leaves(st):
+        out = []
+        map_tree(out.append, st.peds)
+        map_tree(out.append, st.crowd_aux)
+        return out
+
+    for _ in range(3):
+        states = crowd(states, quiet)
+    for beep in (quiet, loud):
+        got = leaves(crowd(states, beep))
+        for k in range(s):
+            one = (beep[0][k:k + 1], beep[1][k:k + 1])
+            want = leaves(crowd(map_tree(lambda x: x[k:k + 1], states), one))
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert torch.equal(g[k:k + 1], w), (k, i)
+    moved = crowd(states, loud).peds.pos
+    assert not torch.equal(moved, crowd(states, quiet).peds.pos)
+
+    def ops(st):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            crowd(st, loud)
+            torch.cuda.synchronize()
+        return sum(e.device_type() == torch.autograd.DeviceType.CUDA
+                   for e in prof.profiler.kineto_results.events())
+
+    batched = ops(states)
+    assert 0 < batched <= 2000, batched

@@ -27,8 +27,10 @@ from img_env_tpu.parallel.batched_env import BatchedNavEnv as JaxBatchedNavEnv
 from img_env_tpu_torch.config import EnvConfig
 from img_env_tpu_torch.core.convert import world_state_from_numpy
 from img_env_tpu_torch.core.state import map_tree, stack_trees
-from img_env_tpu_torch.crowd import sfm
+from img_env_tpu_torch.crowd import orca, sfm
+from img_env_tpu_torch.crowd.obstacle_split import split_segments
 from img_env_tpu_torch.env.sampler import ScenarioSample
+from img_env_tpu_torch.mpc.prediction import predict_orca
 from img_env_tpu_torch.parallel import BatchedNavEnv
 from tests.test_multiscene_flat import OBS_FIELDS
 from tests.test_torch_env import _assert_vector_states
@@ -362,10 +364,156 @@ def _check_sfm_unbatched():
     assert not torch.equal(pos, _sfm_population()[0])
 
 
-@pytest.mark.parametrize("case", ["pedscene", "dataset", "sfm_unbatched"])
+# rectangles whose kd-tree splits leave 12, 16 and 20 segments
+ORCA_BOXES = torch.tensor([
+    [[2.0, 2.0, 2.6, 2.4], [5.0, 6.0, 5.4, 6.3], [7.0, 3.0, 7.3, 3.5]],
+    [[2.0, 4.0, 6.0, 4.3], [3.0, 2.0, 3.3, 6.0], [6.5, 6.5, 7.0, 7.0]],
+    [[3.0, 3.0, 3.4, 7.0], [2.0, 5.0, 6.0, 5.3], [4.5, 2.0, 4.8, 6.5]]])
+
+
+def _orca_batch(scene):
+    """Three ORCA scenes of 3 peds and 2 robot mirrors, each on its own
+    split (12, 16 and 20 segments): scene 0's first two peds and a robot
+    within each other's ORCA radius (the collision lines), scene 1's
+    peds between crossing walls, scene 2's peds at rest by a beeping
+    robot.  The third ped is invalid in every scene.  Beeps ([S, N, 2],
+    [S, N]): every scene's first robot answered, scene 1's second too
+    (``ervoscene`` alone reads them)."""
+    benv = BatchedNavEnv(port_cfg((3, scene, True)), "cpu", seed=13)
+    core = benv.core
+    core.crowd = core.crowd._replace(sfm_valid=torch.tensor(
+        [True, True, False, True, True]))
+    states, _ = benv.reset(3)
+    p, r = states.peds, states.robots
+    pos, vel = p.pos.clone(), p.vel.clone()
+    pos[0, :2] = torch.tensor([[4.0, 4.5], [4.3, 4.55]])
+    vel[0, :2] = torch.tensor([[0.4, 0.0], [-0.4, 0.1]])
+    pos[1] = torch.tensor([[3.6, 4.6], [2.6, 3.7], [5.0, 5.0]])
+    vel[1] = torch.tensor([[-0.3, -0.3], [0.2, 0.1], [0.0, 0.0]])
+    pos[2] = torch.tensor([[6.0, 2.5], [6.4, 2.9], [7.0, 8.0]])
+    vel[2] = 0.0
+    pose = r.pose.clone()
+    pose[0, 0, :2] = torch.tensor([4.15, 4.9])
+    pose[2, 0, :2] = torch.tensor([6.3, 2.2])
+    segs = [split_segments(b, torch.ones(3, dtype=torch.bool))[0]
+            for b in ORCA_BOXES]
+    obstacles = states.obstacles._replace(
+        aabb=ORCA_BOXES.clone(), segs=stack_trees(segs))
+    states = states._replace(peds=p._replace(pos=pos, vel=vel),
+                             robots=r._replace(pose=pose),
+                             obstacles=obstacles)
+    radii = torch.tensor([[1.0, 0.0], [1.0, 1.0], [1.0, 0.0]])
+    sources = torch.where(radii[..., None] > 0, pose[..., :2], 0.0)
+    return benv, states, sources, radii
+
+
+def _orca_steps_match_scene_by_scene(scene):
+    """BATCH_STEPS crowd steps (``NavEnv._crowd_step``) of the three
+    scenes at once against each scene's own S=1 steps, bit for bit, the
+    robots moving between steps; the peds' yaw (torch's CPU atan2, which
+    rounds an element by its place in the tensor) within CROWD_TOL."""
+    benv, states, sources, radii = _orca_batch(scene)
+    core = benv.core
+    start = states.peds.pos
+
+    def crowd(st, k=slice(None)):
+        peds, aux = core._crowd_step(st, sources[k], radii[k])
+        return st._replace(peds=peds, crowd_aux=aux)
+
+    one = [map_tree(lambda x, k=k: x[k:k + 1], states) for k in range(3)]
+    for t in range(BATCH_STEPS):
+        states = crowd(states)
+        one = [crowd(x, slice(k, k + 1)) for k, x in enumerate(one)]
+        want = stack_trees([map_tree(lambda x: x[0], x) for x in one])
+        no_yaw = lambda x: (x.peds._replace(yaw=None), x.crowd_aux)
+        _assert_bits(no_yaw(states), no_yaw(want), f"crowd at step {t}")
+        _assert_crowd_close(states.peds.yaw, want.peds.yaw, f"yaw {t}")
+        shift = torch.tensor([0.05, -0.03]) * (t + 1)
+        r = states.robots
+        states = states._replace(robots=r._replace(
+            pose=r.pose + torch.cat([shift, torch.zeros(1)])))
+        one = [x._replace(robots=x.robots._replace(
+            pose=x.robots.pose + torch.cat([shift, torch.zeros(1)])))
+            for x in one]
+    return benv, states, start, sources, radii
+
+
+def _check_orca_batch(scene):
+    benv, final, start, sources, radii = _orca_steps_match_scene_by_scene(
+        scene)
+    pos = final.peds.pos
+    # the valid peds moved, and the scenes apart; the invalid one stayed
+    assert not torch.equal(pos[:, :2], start[:, :2])
+    assert torch.equal(pos[:, 2], start[:, 2])
+    assert not torch.equal(pos[0], pos[1])
+    assert not torch.equal(pos[1], pos[2])
+    # the beeps move the ervoscene crowd, and only it
+    _, states, _, _ = _orca_batch(scene)
+    beeped = benv.core._crowd_step(states, sources, radii)[0].pos
+    silent = benv.core._crowd_step(states, sources, 0.0 * radii)[0].pos
+    assert torch.equal(beeped, silent) == (scene == "rvoscene")
+
+
+def _orca_population(m=7, seed=5):
+    """m peds among 2 robots and 4 split rectangles, the last ped
+    invalid."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=g)
+    lo = 3.0 + 3.0 * u(4, 2)
+    segs, _ = split_segments(torch.cat([lo, lo + 0.2 + 0.8 * u(4, 2)], -1),
+                             torch.ones(4, dtype=torch.bool))
+    pos = 3.0 + 3.0 * u(m, 2)
+    return (pos, u(m, 2) - 0.5, 2.0 + 6.0 * u(m, 2), 0.4 + 0.4 * u(m),
+            torch.tensor([True] * (m - 1) + [False]), 3.0 + 3.0 * u(2, 2),
+            u(2, 2) - 0.5, segs)
+
+
+def _check_orca_unbatched():
+    """The MPC 'orca' head's unbatched call [M, ...] against the S=1 call
+    (``predict_orca``, and ``orca_step`` with robots and beeps)."""
+    pos, vel, goal, vmax, valid, rpos, rvel, segs = _orca_population()
+    one = lambda x: x[None]
+    cfg = orca.OrcaConfig(time_step=0.4)
+    rvalid = torch.ones(2, dtype=torch.bool)
+    radius = torch.full_like(vmax, cfg.radius)
+    src, rad = rpos.clone(), torch.tensor([1.0, 0.5])
+    bpos, bvel, bsegs = one(pos), one(vel), map_tree(one, segs)
+    for t in range(BATCH_STEPS):
+        pos, vel = orca.orca_step(
+            pos, vel, orca.pref_velocity(pos, goal), radius, vmax, valid,
+            rpos, rvel, rvalid, cfg, segs, evac_sources=src, evac_radii=rad)
+        bpos, bvel = orca.orca_step(
+            bpos, bvel, orca.pref_velocity(bpos, one(goal)), one(radius),
+            one(vmax), one(valid), one(rpos), one(rvel), one(rvalid), cfg,
+            bsegs, evac_sources=one(src), evac_radii=one(rad))
+        _assert_bits((bpos[0], bvel[0]), (pos, vel), f"step {t}")
+    assert not torch.equal(pos, _orca_population()[0])
+    # the head: H steps without robots, no validity mask
+    p0, v0 = _orca_population()[:2]
+    head = predict_orca(p0, v0, vmax, BATCH_STEPS, cfg, segs)
+    nb = p0.new_zeros((1, 0, 2))
+    bp, bv, traj = one(p0), one(v0), []
+    goals = bp + bv * 4.0
+    for _ in range(BATCH_STEPS):
+        bp, bv = orca.orca_step(
+            bp, bv, orca.pref_velocity(bp, goals), one(radius), one(vmax),
+            torch.ones((1, 7), dtype=torch.bool), nb, nb,
+            torch.ones((1, 0), dtype=torch.bool), cfg, bsegs)
+        traj.append(bp[0])
+    _assert_bits(head, torch.stack(traj), "predict_orca")
+
+
+@pytest.mark.parametrize("case", ["pedscene", "dataset", "sfm_unbatched",
+                                  "rvoscene", "ervoscene", "orca_unbatched"])
 def test_batched_crowd_matches_scene_by_scene(case):
     if case == "sfm_unbatched":
         _check_sfm_unbatched()
+        return
+    if case == "orca_unbatched":
+        _check_orca_unbatched()
+        return
+    if case in ("rvoscene", "ervoscene"):
+        _check_orca_batch(case)
         return
     benv, states = (_pedscene_batch if case == "pedscene"
                     else _dataset_batch)()

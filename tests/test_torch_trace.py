@@ -185,15 +185,15 @@ def test_batch_without_peds_has_no_crowd_span():
 
 @pytest.mark.parametrize("scene,on,want", [
     ("pedscene", True, {"crowd.scenes": S}),
-    ("rvoscene", True, {"crowd.scene_loops": S, "orca.agents": 2 * S}),
+    ("rvoscene", True, {"crowd.scenes": S, "orca.agents": 2 * S}),
     ("pedscene", False, {}),
     ("rvoscene", False, {})], ids=["pedscene", "rvoscene", "pedscene-off",
                                    "rvoscene-off"])
 def test_crowd_engagement_counters(scene, on, want):
-    """One batch step of S scenes counts its scenes once: ``crowd.scenes``
-    where the crowd steps them at once (SFM), ``crowd.scene_loops`` where
-    ORCA solves them one by one (with ``orca.agents``, its peds); nothing
-    with tracing off."""
+    """One batch step of S scenes counts its scenes once in
+    ``crowd.scenes``: the crowd steps them at once, SFM and ORCA alike
+    (ORCA with ``orca.agents``, the peds it solves); nothing with tracing
+    off."""
     d = dict(CFG, ped_sim=dict(CFG["ped_sim"], type=scene))
     benv = BatchedNavEnv(EnvConfig.from_dict(d), "cpu", seed=5)
     states, _ = benv.reset(S)
@@ -219,10 +219,11 @@ def run_orca_batch(scene):
 @pytest.mark.parametrize("on", [True, False], ids=["on", "off"])
 @pytest.mark.parametrize("scene", ["rvoscene", "ervoscene"])
 def test_orca_spans_and_counters(scene, on):
-    """``reset.split`` around each reset scene's kd-tree split, a
-    ``crowd.orca`` span a scene inside ``env.crowd`` holding ``orca.lines``
-    and ``orca.solve``; counters ``orca.segments`` (the split's segments)
-    and ``orca.agents`` (+M a scene solved); the same bits on and off."""
+    """``reset.split`` around each reset scene's kd-tree split, one
+    ``crowd.orca`` span a step inside ``env.crowd`` (every scene solved in
+    one call) holding ``orca.lines`` and ``orca.solve``; counters
+    ``orca.segments`` (the split's segments) and ``orca.agents`` (+M a
+    scene solved); the same bits on and off."""
     off = leaves(run_orca_batch(scene))
     if on:
         trace.enable()
@@ -242,12 +243,13 @@ def test_orca_spans_and_counters(scene, on):
     assert tree["orca.lines"] == {"crowd.orca"}
     assert tree["orca.solve"] == {"crowd.orca"}
     names = [s[0] for s in spans]
-    for name in ("reset.split", "crowd.orca", "orca.lines", "orca.solve"):
-        assert names.count(name) == S
+    assert names.count("reset.split") == S
+    for name in ("crowd.orca", "orca.lines", "orca.solve"):
+        assert names.count(name) == 1
     segments = int(states.obstacles.segs.valid.sum())
     assert segments >= 4 * 3 * S        # the 3 rectangles' edges, split
     assert counts == {"reset.scenes": S, "orca.segments": segments,
-                      "crowd.scene_loops": S, "orca.agents": 2 * S}
+                      "crowd.scenes": S, "orca.agents": 2 * S}
 
 
 def test_mpc_span_tree():

@@ -254,10 +254,11 @@ def loss_and_grads(model, params, mb, cfg: PpoConfig, group=None,
 # plus GRAD_ABS for a leaf whose terms are all ~0 (the attention's key
 # bias, whose exact gradient is 0).  Measured on the H100 at the stage-5
 # shapes, minibatches of 256 (tools/grad_terms.py over 42, and
-# chip_smoke.py's phase 13b): float32 at <= 4.5e-5 of that scale (a ReLU
-# unit within rounding of 0 adds one sample's whole term on one device
-# only), TF32 convolutions at >= 3.3e-4; GRAD_REL lies between them with
-# a factor of 2 or more on each side.
+# tests/test_torch_card_train.py::test_train_gradients_card_equals_cpu):
+# float32 at <= 4.5e-5 of that scale (a ReLU unit within rounding of 0
+# adds one sample's whole term on one device only), TF32 convolutions at
+# >= 3.3e-4; GRAD_REL lies between them with a factor of 2 or more on
+# each side.
 GRAD_REL = 1e-4
 GRAD_ABS = 1e-8
 

@@ -10,12 +10,21 @@ scenario sampler on a CUDA generator.  The scene batch: K1 over S = 1, 3
 and 16 scenes in one launch, K2 with explicit in-scene ids (a sensor
 group's robots), K3 and K5 on a fast-mode grid's tables.  The SFM and
 the ORCA crowds of 50-scene batches stepped at once against 50 one-scene
-steps, and their device operations.
+steps, and their device operations.  At production shape (the bench
+configurations of ``card_common.py``): K1 on bench200's reset,
+crowded, stacked and map-edge poses and at the span limit, and over the
+4x50 and 16x12 scene batches; K2, K3 and K5 on bench200's crowded poses,
+the map edges, unwrapped yaws, two stacked scenes, the crowd resets'
+maps, the sensor groups' in-scene ids and the fast grid, and on forced
+thresholds (no hits, hits at step 0, minor runs that make the warps
+walk); K4 on the bench200ped reset, forced ties, tiny and subnormal
+ranges, no ped in any window, 600 in each and 4 scenes x 50 robots.
 
 These need an NVIDIA GPU and nvcc and skip without them.  On the machine
 with the card (which has no JAX) run them without the JAX test conftest:
 
-    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \
+        tests/test_torch_cuda_kernels.py tests/test_torch_card_*.py
 
 This file imports nothing of JAX.
 """
@@ -24,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import card_common as cc
 from img_env_tpu_torch.config import EnvConfig
 from img_env_tpu_torch.env import observe, sampler
 from img_env_tpu_torch.ops import f32, painter, pedmap, polar, raster, view
@@ -44,6 +54,43 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+PRODUCTION = {"bench200": cc.BENCH200, "bench200ped": cc.BENCH200PED,
+              "bench200ervo": cc.BENCH200ERVO, "fast200": cc.FAST200,
+              "groups200": cc.GROUPS200, "4x50": cc.MULTI_4X50,
+              "16x12": cc.MULTI_16X12}
+
+
+@pytest.fixture(scope="module")
+def production(dev):
+    """``production(name)``: (env, reset state) of a production config,
+    built at its first use (a BatchedNavEnv for the scene batches)."""
+    from img_env_tpu_torch import BatchedNavEnv, NavEnv
+
+    built = {}
+
+    def get(name):
+        if name not in built:
+            cfg = EnvConfig.from_dict(PRODUCTION[name])
+            env = (BatchedNavEnv(cfg, dev) if cfg.num_scenes > 1
+                   else NavEnv(cfg, dev))
+            built[name] = (env, env.reset()[0])
+        return built[name]
+    return get
+
+
+def _on_map_edges(poses, h, w, res, k):
+    """The poses with robots 0..4k-1 on the map's four edges (k each) and
+    the next four on its corners."""
+    top_x, top_y = (h - 1) * res, (w - 1) * res
+    poses = poses.clone()
+    poses[0:k, 0], poses[k:2 * k, 0] = 0.0, top_x
+    poses[2 * k:3 * k, 1], poses[3 * k:4 * k, 1] = 0.0, top_y
+    poses[4 * k:4 * k + 4, :2] = torch.tensor(
+        [[0.0, 0.0], [top_x, 0.0], [0.0, top_y], [top_x, top_y]],
+        device=poses.device)
+    return poses
 
 
 def _footprints(n):
@@ -82,33 +129,42 @@ def test_raster_kernel_matches_twin(dev, n):
 
 
 @pytest.mark.parametrize("case", ["stacked", "map_edges", "span_limit",
-                                  "many_robots"])
-def test_raster_kernel_edge_cases(dev, case):
+                                  "many_robots", "bench200_reset",
+                                  "bench200_crowded", "bench200_stacked",
+                                  "bench200_map_edges",
+                                  "bench200_span_limit"])
+def test_raster_kernel_edge_cases(dev, production, case):
     """Every robot on one pose (count N, id sums up to N (N + 1) / 2);
     footprints straddling each map edge and corner; circle footprints
     spanning RASTER_MAX_SPAN cells (more points than a block holds in
-    registers); 1500 robots, more than the card holds blocks at once."""
-    n = 1500 if case == "many_robots" else 37
-    poses, static, pts, msk = _scene(n, 11, dev)
-    h, w = static.shape
+    registers); 1500 robots, more than the card holds blocks at once.
+    The bench200 cases: its reset poses, and its crowded poses (every odd
+    robot on its even neighbour) with the same forcings, on its map."""
+    if case.startswith("bench200"):
+        env, state = production("bench200")
+        case = case[len("bench200_"):]
+        pts, msk = env.tables.robot_points, env.tables.robot_mask
+        res, (h, w), k = env.statics.resolution, state.obs_map.shape, 10
+        poses = state.robots.pose
+        if case != "reset":
+            poses = cc.crowded_poses(poses)
+        n = poses.shape[0]
+    else:
+        n = 1500 if case == "many_robots" else 37
+        poses, static, pts, msk = _scene(n, 11, dev)
+        res, (h, w), k = RES, static.shape, 6
     if case == "stacked":
         poses = poses[:1].expand_as(poses)
     elif case == "map_edges":
-        top_x, top_y = (h - 1) * RES, (w - 1) * RES
-        poses = poses.clone()
-        poses[0:6, 0], poses[6:12, 0] = 0.0, top_x
-        poses[12:18, 1], poses[18:24, 1] = 0.0, top_y
-        poses[24:28, :2] = torch.tensor(
-            [[0.0, 0.0], [top_x, 0.0], [0.0, top_y], [top_x, top_y]],
-            device=dev)
+        poses = _on_map_edges(poses, h, w, res, k)
     elif case == "span_limit":
         big = circle_points(0.0, 0.0,
-                            (raster.RASTER_MAX_SPAN - 2.5) * RES / 2)
-        assert raster.check_footprint_span(big[None], RES) == \
+                            (raster.RASTER_MAX_SPAN - 2.5) * res / 2)
+        assert raster.check_footprint_span(big[None], res) == \
             raster.RASTER_MAX_SPAN
         pts = torch.as_tensor(big, device=dev).expand(n, -1, -1)
         msk = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
-    cells = raster.world_to_cell(raster.transform_points(poses, pts), RES)
+    cells = raster.world_to_cell(raster.transform_points(poses, pts), res)
     got = raster.robot_maps_kernel(cells, msk, h, w)
     want = raster.robot_maps_twin(cells, msk, h, w)
     assert torch.equal(got, want)
@@ -117,34 +173,102 @@ def test_raster_kernel_edge_cases(dev, case):
         assert int((got >> 12).max()) == n * (n + 1) // 2
 
 
-@pytest.mark.parametrize("n", [1, 37, 70])
-def test_fill_and_paint_kernels_match_twins(dev, n):
-    poses, static, pts, msk = _scene(n, 100 + n, dev)
-    ps = polar.PolarStatics.build(VP, n_chunks=8)
-    pst = painter.PainterStatics.build(ps)
-    tp = polar.make_tables(ps, np.zeros((n, ps.n_slots), bool), dev)
-    tt = painter.make_painter_tables(pst, painter.PaintSlots.build(pst), dev)
-    e = torch.zeros((0, 1, 2), device=dev)
-    eb = torch.zeros((0, 1), dtype=torch.bool, device=dev)
-    layers = raster.build_layers(static, RES, poses, pts, msk,
-                                 torch.zeros((0, 3), device=dev),
-                                 e, eb, e, eb, e, eb)
-    cos, sin = torch.cos(poses[:, 2]), torch.sin(poses[:, 2])
-    args = (layers.packed, cos, sin, poses[:, 0].contiguous(),
-            poses[:, 1].contiguous(), tp.pix_x, tp.pix_y, ps.n_fill_slots,
-            RES)
+def _bench200_fill_args(production, case):
+    """(env, K2's arguments) of a production case of the fill test."""
+    if case in ("bench200ped", "bench200ervo"):
+        env, state = production(case)
+        return env, cc.fill_args(env, env._layers(state).packed,
+                                 state.robots.pose)
+    env, state = production("bench200")
+    poses = cc.crowded_poses(state.robots.pose)
+    packed = cc.bench200_packed(env, state, poses)
+    if case == "bench200_map_edges":
+        h, w = state.obs_map.shape
+        return env, cc.fill_args(env, packed, _on_map_edges(
+            poses, h, w, env.statics.resolution, 10))
+    if case == "bench200_unwrapped_yaws":
+        poses = poses.clone()
+        n = poses.shape[0]
+        poses[:, 2] += 2 * torch.pi * torch.arange(
+            -3, 3, device=poses.device).repeat(n // 6 + 1)[:n]
+    if case == "bench200_two_scenes":
+        env_p, state_p = production("bench200ped")
+        packed = torch.stack([packed, env_p._layers(state_p).packed])
+        return env, cc.fill_args(env, packed, poses, poses.shape[0] // 2)
+    return env, cc.fill_args(env, packed, poses)
+
+
+@pytest.mark.parametrize("case", [1, 37, 70, "bench200_crowded",
+                                  "bench200_map_edges",
+                                  "bench200_unwrapped_yaws",
+                                  "bench200_two_scenes", "bench200ped",
+                                  "bench200ervo"])
+def test_fill_and_paint_kernels_match_twins(dev, production, case):
+    """K2 and K3 for n = 1, 37 and 70 robots on a small view; at bench200's
+    shape K5 too, on its crowded poses, with robots on the map's edges and
+    corners, with yaws unwrapped by up to three turns (a robot's yaw is
+    not wrapped as it turns), on two scenes stacked (robot i reads scene
+    i // 100: bench200's map, then bench200ped's), and on the crowd
+    resets' maps (ped legs)."""
+    tb = None
+    if isinstance(case, str):
+        env, args = _bench200_fill_args(production, case)
+        ps, tp = env.statics.polar, env.tables.polar
+        pst, tt = env.statics.painter, env.tables.painter
+        tb = cc.block_tables(env)
+    else:
+        n = case
+        poses, static, pts, msk = _scene(n, 100 + n, dev)
+        ps = polar.PolarStatics.build(VP, n_chunks=8)
+        pst = painter.PainterStatics.build(ps)
+        tp = polar.make_tables(ps, np.zeros((n, ps.n_slots), bool), dev)
+        tt = painter.make_painter_tables(pst, painter.PaintSlots.build(pst),
+                                         dev)
+        e = torch.zeros((0, 1, 2), device=dev)
+        eb = torch.zeros((0, 1), dtype=torch.bool, device=dev)
+        layers = raster.build_layers(static, RES, poses, pts, msk,
+                                     torch.zeros((0, 3), device=dev),
+                                     e, eb, e, eb, e, eb)
+        cos, sin = torch.cos(poses[:, 2]), torch.sin(poses[:, 2])
+        args = (layers.packed, cos, sin, poses[:, 0].contiguous(),
+                poses[:, 1].contiguous(), tp.pix_x, tp.pix_y,
+                ps.n_fill_slots, RES)
     occ = polar.fill_sorted_kernel(*args)
     assert torch.equal(occ, polar.fill_sorted_twin(*args))
     _, _, aux = polar.raycast_batched(ps, tp, occ)
     s_hit, s_tail = painter.hit_steps(pst, tt, *aux)
+    want = painter.paint_sorted(pst, tt, s_hit, s_tail)
     got = painter.paint_slots_kernel(tt, s_hit, s_tail, pst.n_slots)
-    assert torch.equal(got, painter.paint_sorted(pst, tt, s_hit, s_tail))
+    assert torch.equal(got, want)
+    if tb is not None:
+        assert torch.equal(
+            painter.paint_blocks_kernel(tb, s_hit, s_tail, pst.n_slots), want)
 
 
-@pytest.mark.parametrize("s,n", [(1, 37), (3, 5), (16, 12)])
-def test_raster_kernel_scene_axis(dev, s, n):
+@pytest.mark.parametrize("s,n,batch", [(1, 37, None), (3, 5, None),
+                                       (16, 12, None), (4, 50, "4x50"),
+                                       (16, 12, "16x12")])
+def test_raster_kernel_scene_axis(dev, production, s, n, batch):
     """S scenes in one launch, robots overlapping within and across scenes
-    (ids are in-scene), footprint masks shared by the scenes."""
+    (ids are in-scene), footprint masks shared by the scenes.  The batch
+    cases: bench200 as 4 scenes of 50 robots and 16 of 12, on the reset's
+    poses and on its crowded poses."""
+    if batch is not None:
+        benv, states = production(batch)
+        t, res = benv.core.tables, benv.core.statics.resolution
+        h, w = states.obs_map.shape[-2:]
+        pose = states.robots.pose
+        assert pose.shape[:2] == (s, n)
+        for p in (pose, cc.crowded_poses(pose.reshape(-1, 3)).reshape(
+                pose.shape)):
+            cells = raster.world_to_cell(
+                raster.transform_points(p, t.robot_points), res)
+            got = raster.robot_maps_kernel(cells, t.robot_mask, h, w)
+            assert got.shape == (s, h, w)
+            assert torch.equal(
+                got, raster.robot_maps_twin(cells, t.robot_mask, h, w))
+        assert int((got & 0xFFF).max()) >= 2
+        return
     scenes = [_scene(n, 300 + k, dev) for k in range(s)]
     static, pts, msk = scenes[0][1:]
     poses = torch.stack([x[0] for x in scenes])
@@ -157,10 +281,35 @@ def test_raster_kernel_scene_axis(dev, s, n):
     assert int((got & 0xFFF).max()) >= 2
 
 
-@pytest.mark.parametrize("scenes", [1, 4])
-def test_fill_kernel_with_rids(dev, scenes):
+@pytest.mark.parametrize("scenes", [1, 4, "bench200_groups"])
+def test_fill_kernel_with_rids(dev, production, scenes):
     """A sensor group's robots, in-scene ids 1, 3, 4 of 4 (robot 2 stands
-    on robot 0; ids from group positions would change the fill)."""
+    on robot 0; ids from group positions would change the fill).  At
+    bench200 with two sensor placements (even robots on the first, odd on
+    the second): K2 with each group's in-scene ids, K3 on each group's
+    tables."""
+    if scenes == "bench200_groups":
+        env, state = production("groups200")
+        packed = env._layers(state).packed
+        groups = list(zip(env.statics.sensor_groups, env.group_tables))
+        assert len(groups) == 2
+        for g, tg in groups:
+            poses = state.robots.pose[tg.idx]
+            sin, cos = f32.sin_cos(poses[:, 2])
+            args = (packed, cos, sin, poses[:, 0].contiguous(),
+                    poses[:, 1].contiguous(), tg.polar.pix_x,
+                    tg.polar.pix_y, int(g.polar.n_fill_slots),
+                    env.statics.resolution)
+            occ = polar.fill_sorted_kernel(*args, rids=tg.rids)
+            assert torch.equal(occ, polar.fill_sorted_twin(*args,
+                                                           rids=tg.rids))
+            _, _, aux = polar.raycast_batched(g.polar, tg.polar, occ)
+            s_hit, s_tail = painter.hit_steps(g.painter, tg.painter, *aux)
+            assert torch.equal(
+                painter.paint_slots_kernel(tg.painter, s_hit, s_tail,
+                                           g.painter.n_slots),
+                painter.paint_sorted(g.painter, tg.painter, s_hit, s_tail))
+        return
     ids = np.asarray([1, 3, 4], np.int32)
     packs, poses = [], []
     for k in range(scenes):
@@ -186,10 +335,25 @@ def test_fill_kernel_with_rids(dev, scenes):
     assert not torch.equal(got, polar.fill_sorted_kernel(*args))
 
 
-@pytest.mark.parametrize("scale", [2, 3])
-def test_paint_kernel_on_fast_tables(dev, scale):
+@pytest.mark.parametrize("scale", [2, 3, "bench200_fast"])
+def test_paint_kernel_on_fast_tables(dev, production, scale):
     """K3 and K5 (and K2 before them) on the fast grid: the view coarsened
-    by ``scale``, as sensor_mode='fast' builds it."""
+    by ``scale``, as sensor_mode='fast' builds it; and on fast bench200's
+    tables at its reset."""
+    if scale == "bench200_fast":
+        env, state = production("fast200")
+        pst = env.statics.painter
+        args = cc.fill_args(env, env._layers(state).packed,
+                            state.robots.pose)
+        occ = polar.fill_sorted_kernel(*args)
+        assert torch.equal(occ, polar.fill_sorted_twin(*args))
+        s_hit, s_tail = cc.thresholds(env, occ)
+        want = painter.paint_sorted(pst, env.tables.painter, s_hit, s_tail)
+        assert torch.equal(painter.paint_slots_kernel(
+            env.tables.painter, s_hit, s_tail, pst.n_slots), want)
+        assert torch.equal(painter.paint_blocks_kernel(
+            cc.block_tables(env), s_hit, s_tail, pst.n_slots), want)
+        return
     n = 37
     poses, static, pts, msk = _scene(n, 500 + scale, dev)
     vp = VP._replace(hpx=VP.hpx // scale, wpx=VP.wpx // scale,
@@ -251,14 +415,56 @@ def test_fill_kernel_scenes_and_large_maps(dev, n, h, w, nps):
     assert torch.equal(got, want) and bool(want.any())
 
 
+def _bench200_thresholds(production, kind):
+    """K3's tables and forced thresholds at bench200: from the raycast of
+    its crowded poses, then no beam hits, every beam hits at its first
+    step, or two beams of three hit at step 0 with a minor run to the last
+    step (their visits after the first step write nothing, so a slot's top
+    visits often fall in minor runs and its warp walks down its list to
+    the first writer; the case must walk some)."""
+    env, state = production("bench200")
+    poses = cc.crowded_poses(state.robots.pose)
+    occ = polar.fill_sorted_kernel(*cc.fill_args(
+        env, cc.bench200_packed(env, state, poses), poses))
+    s_hit, s_tail = cc.thresholds(env, occ)
+    pst, tt = env.statics.painter, env.tables.painter
+    if kind == "no_hit":
+        s_hit = s_tail = torch.full_like(s_hit, 2 ** 14)
+    elif kind == "step0":
+        s_hit = torch.zeros_like(s_hit)
+        s_tail = tt.nxt[:, 0][None].expand_as(s_hit).to(
+            torch.int16).contiguous()
+    else:
+        s_hit, s_tail = s_hit.clone(), s_tail.clone()
+        sel = torch.arange(s_hit.shape[1], device=s_hit.device) % 3 != 0
+        s_hit[:, sel], s_tail[:, sel] = 0, 2 ** 14 - 1
+        assert cc.walk_tests(tt, s_hit, s_tail, pst.n_slots)[1] > 0
+    return pst, tt, cc.block_tables(env), s_hit, s_tail
+
+
 @pytest.mark.parametrize("kind", ["no_hit", "step0", "last", "mixed",
-                                  "minor_runs"])
-def test_paint_kernel_forced_thresholds(dev, kind):
+                                  "minor_runs", "bench200_no_hit",
+                                  "bench200_step0", "bench200_minor_runs"])
+def test_paint_kernel_forced_thresholds(dev, production, kind):
     """K3 and K5 at 360 beams (dense near-sensor slots, a pack of wide
     slots) on forced thresholds: no hit, a hit at every beam's first step,
     at its last step, a mix, and hits at step 0 with minor runs to the last
     step on two beams of three (top visits that write nothing, so the
-    warps walk the slots' lists)."""
+    warps walk the slots' lists); and at bench200's 960 beams
+    (``_bench200_thresholds``)."""
+    if kind.startswith("bench200_"):
+        pst, tt, tb, s_hit, s_tail = _bench200_thresholds(
+            production, kind[len("bench200_"):])
+    else:
+        pst, tt, tb, s_hit, s_tail = _small_thresholds(dev, kind)
+    want = painter.paint_sorted(pst, tt, s_hit, s_tail)
+    got = painter.paint_slots_kernel(tt, s_hit, s_tail, pst.n_slots)
+    assert torch.equal(got, want)
+    got = painter.paint_blocks_kernel(tb, s_hit, s_tail, pst.n_slots)
+    assert torch.equal(got, want)
+
+
+def _small_thresholds(dev, kind):
     vp = VP._replace(range_total=360)
     pst = painter.PainterStatics.build(polar.PolarStatics.build(vp,
                                                                 n_chunks=8))
@@ -281,12 +487,7 @@ def test_paint_kernel_forced_thresholds(dev, kind):
         s_hit[:, ::3], s_tail[:, ::3] = 2 ** 14, 2 ** 14
     if kind == "minor_runs":
         s_tail[:, 1::3], s_tail[:, 2::3] = 2 ** 14 - 1, 2 ** 14 - 1
-    s_hit, s_tail = s_hit.to(torch.int16), s_tail.to(torch.int16)
-    want = painter.paint_sorted(pst, tt, s_hit, s_tail)
-    got = painter.paint_slots_kernel(tt, s_hit, s_tail, pst.n_slots)
-    assert torch.equal(got, want)
-    got = painter.paint_blocks_kernel(tb, s_hit, s_tail, pst.n_slots)
-    assert torch.equal(got, want)
+    return pst, tt, tb, s_hit.to(torch.int16), s_tail.to(torch.int16)
 
 
 def _peds(n, m, seed, dev):
@@ -317,24 +518,81 @@ def test_pedmap_kernel_matches_twin(dev, n, m):
     assert bool(got[:, 0].any())
 
 
+def _bench200ped_peds(production, case):
+    """K4's input (px, py, vx, vy) at the bench200ped reset (200 robots,
+    200 peds), each ped with its own seeded velocity: the reset's peds;
+    forced ties (``card_common.pedmap_ties``); tiny ranges (peds at a
+    subnormal range^2, |x| = 1e-20, at +0 from -0 coordinates, and at a
+    range^2 that underflows to 0, |x| = 1e-23); the reset's peds 100 m off
+    in x; 600 peds per robot drawn over [-3.2, 3.2]^2 (most inside the
+    window, many covering every pixel); and the reset as 4 scenes of 50
+    robots, each scene with its own 200 peds."""
+    env, state = production("bench200ped")
+    pose = state.robots.pose
+    ties, vel = cc.pedmap_ties(state)
+    if case == "ties":
+        return ties
+    reset = observe.peds_in_base(pose, state.peds.pos, vel)
+    if case == "reset":
+        return reset
+    if case == "tiny_ranges":
+        tiny = [x.clone() for x in reset]
+        tiny[0][:, 0:10], tiny[1][:, 0:10] = 1e-20, 0.0
+        tiny[0][:, 10:20], tiny[1][:, 10:20] = -0.0, -0.0
+        tiny[0][:, 20:30], tiny[1][:, 20:30] = -1e-23, 1e-23
+        return tuple(tiny)
+    if case == "out_of_every_window":
+        return (reset[0] + 100.0, *reset[1:])
+    gen = torch.Generator(device=pose.device).manual_seed(1)
+    if case == "600_in_the_windows":
+        u = torch.rand((4, pose.shape[0], 600), generator=gen,
+                       device=pose.device)
+        return (u[0] * 6.4 - 3.2, u[1] * 6.4 - 3.2, u[2] * 2 - 1,
+                u[3] * 2 - 1)
+    pos = state.peds.pos                                 # 4 scenes x 50
+    scenes = torch.stack([pos.roll(50 * k, 0) for k in range(4)])
+    return [x.reshape(200, -1) for x in observe.peds_in_base(
+        pose.reshape(4, 50, 3), scenes, vel.expand(4, -1, -1))]
+
+
 @pytest.mark.parametrize("case", ["all_out", "600_in_one_window", "n1",
-                                  "n257"])
-def test_pedmap_kernel_edge_cases(dev, case):
+                                  "n257", "bench200ped_reset",
+                                  "bench200ped_ties",
+                                  "bench200ped_tiny_ranges",
+                                  "bench200ped_out_of_every_window",
+                                  "bench200ped_600_in_the_windows",
+                                  "bench200ped_4x50"])
+def test_pedmap_kernel_edge_cases(dev, production, case):
     """No ped in any window; all 600 peds inside robot 0's window (many
-    compacted peds and many atomics per pixel); N = 1 and N = 257."""
-    n, m = {"n1": (1, 40), "n257": (257, 40)}.get(case, (5, 600))
-    base = list(_peds(n, m, 17, dev))
-    if case == "all_out":
-        base[0] = base[0] + 100.0
-    elif case == "600_in_one_window":
-        rng = np.random.default_rng(5)
-        xy = torch.as_tensor(rng.uniform(-3.0, 3.0, (2, m)).astype(
-            np.float32), device=dev)
-        base[0][0], base[1][0] = xy[0], xy[1]
-    got = pedmap.ped_map_kernel(*base, 0.125, 0.3, 48)
-    want = pedmap.ped_map_twin(*base, 0.125, 0.3, 48)
+    compacted peds and many atomics per pixel); N = 1 and N = 257.  The
+    bench200ped cases (``_bench200ped_peds``) at its ped map's size; on
+    the ties, the twin with ties given to the smaller index must differ
+    from the twin, or the case could not see K4's winner rule."""
+    res, r_img, hs = 0.125, 0.3, 48
+    if case.startswith("bench200ped_"):
+        env = production("bench200ped")[0]
+        hs, r_img = int(env.cfg.ped_image_size[0]), float(env.cfg.ped_image_r)
+        res = 6.0 / hs
+        base = _bench200ped_peds(production, case[len("bench200ped_"):])
+    else:
+        n, m = {"n1": (1, 40), "n257": (257, 40)}.get(case, (5, 600))
+        base = list(_peds(n, m, 17, dev))
+        if case == "all_out":
+            base[0] = base[0] + 100.0
+        elif case == "600_in_one_window":
+            rng = np.random.default_rng(5)
+            xy = torch.as_tensor(rng.uniform(-3.0, 3.0, (2, m)).astype(
+                np.float32), device=dev)
+            base[0][0], base[1][0] = xy[0], xy[1]
+    got = pedmap.ped_map_kernel(*base, res, r_img, hs)
+    want = pedmap.ped_map_twin(*base, res, r_img, hs)
     assert torch.equal(got, want)
-    assert bool(got[:, 0].any()) == (case != "all_out")
+    assert bool(got[:, 0].any()) == (case not in (
+        "all_out", "bench200ped_out_of_every_window"))
+    if case == "bench200ped_ties":
+        flipped = pedmap.ped_map_twin(*(x.flip(1) for x in base), res,
+                                      r_img, hs)
+        assert not torch.equal(flipped[:, 1:], want[:, 1:])
 
 
 def test_sampler_follows_a_cuda_generator(dev):

@@ -13,29 +13,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from card_common import field_errors as _field_errors
 from img_env_tpu_torch.config import EnvConfig
 from img_env_tpu_torch.parallel.batched_env import (BatchedNavEnv,
                                                     rollout_with_obs)
 from img_env_tpu_torch.parallel.mesh import host_mesh, make_mesh, scene_block
-
-# the fields ``tests/test_multidev_parity.py`` holds bit-exact across
-# sharding, and the vector fields it holds to 1e-12
-BITEXACT = ("sensor_maps", "lasers", "angular_maps", "is_collisions",
-            "is_arrives")
-VECTORS = ("vector_states", "ped_vector_states", "ped_maps", "step_ds")
-
-
-def _field_errors(got, want) -> dict:
-    """Per observation field: mismatching entries (bit-exact fields) or
-    the largest absolute difference (vector fields)."""
-    out = {}
-    for f in BITEXACT:
-        out[f] = int((getattr(got, f) != getattr(want, f)).sum())
-    for f in VECTORS:
-        g, w = getattr(got, f), getattr(want, f)
-        out[f] = float((g.double() - w.double()).abs().max()) if g.numel() \
-            else 0.0
-    return out
 
 
 def sharded_env(cfg_dict: dict, scenes: int, steps: int, seed: int) -> dict:

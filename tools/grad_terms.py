@@ -4,16 +4,17 @@ of the per-sample terms whose sum it is.
 
     python3 tools/grad_terms.py [--minibatches 6] [--out FILE]
 
-The inputs of ``chip_smoke.py`` phase 13b: the stage-5 continuation
-(``chip_smoke.TRAIN_ARGS``, one update through ``train.run``), then one
-unroll of its policy, whose samples give ``--minibatches`` random
-minibatches of ``chip_smoke.GRAD_SAMPLES``.  For each: the gradient of
-every leaf on the card (``ppo.loss_and_grads``, TF32 off) and on the CPU,
-the TF32 control (a bare ``backward`` under torch's default flags), and
-``ppo.grad_term_sums`` (each element's sum over the samples of its term's
-magnitude).  Per leaf it records the largest |gradient|, the largest term
-sum, and the worst error of the card and of the control as a share of
-(a) 1e-4 of the leaf's largest |gradient| (phase 13b's earlier check),
+The inputs of ``tests/test_torch_card_train.py``'s gradient test: the
+stage-5 continuation (``TRAIN_ARGS`` of ``card_common.py``, one update
+through ``train.run``), then one unroll of its policy, whose samples give
+``--minibatches`` random minibatches of ``GRAD_SAMPLES``.  For each: the
+gradient of every leaf on the card (``ppo.loss_and_grads``, TF32 off) and
+on the CPU, the TF32 control (a bare ``backward`` under torch's default
+flags), and ``ppo.grad_term_sums`` (each element's sum over the samples
+of its term's magnitude).  Per leaf it records the largest |gradient|, the
+largest term sum, and the worst error of the card and of the control as a
+share of
+(a) 1e-4 of the leaf's largest |gradient| (an earlier form of the check),
 (b) the element's own term sum, (c) the leaf's largest term sum (the
 scale of ``ppo.GRAD_REL``); ``--out`` writes them, and each minibatch's
 summary line prints the worst leaf of each.  Needs a card.
@@ -32,12 +33,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-import chip_smoke as cs  # noqa: E402
+import card_common as cs  # noqa: E402
 from img_env_tpu_torch.train import ppo, run  # noqa: E402
 from torch.func import functional_call  # noqa: E402
 
 
-# phase 13b's earlier check: each leaf within 1e-4 of its largest
+# an earlier form of the check: each leaf within 1e-4 of its largest
 # |gradient|, plus 1e-8
 OLD_TOL = 1e-4
 

@@ -1,5 +1,5 @@
 """PPO learning curves from scratch on easy_train's config (README.md:101-104's
-settings: ``chip_smoke.EASY_TRAIN`` and ``chip_smoke.EASY_ARGS``), one run
+settings: ``EASY_TRAIN`` and ``EASY_ARGS`` of ``card_common.py``), one run
 per seed, and the card against the CPU on injected draws.
 
     python3 tools/train_curves.py [--seeds 0,1,2] [--updates 150]
@@ -32,7 +32,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-import chip_smoke as cs  # noqa: E402
+import card_common as cs  # noqa: E402
 from img_env_tpu_torch import BatchedNavEnv, EnvConfig  # noqa: E402
 from img_env_tpu_torch.models.policy import (CrowdNavPolicy,  # noqa: E402
                                              PolicyConfig, init_policy)

@@ -478,14 +478,15 @@ def launch_delta(before: dict) -> dict:
 class StepLaunches:
     """While active, every ``BatchedNavEnv.step`` must launch each kernel
     exactly ``per_step[name]`` times (the kernels not named: never); counts
-    the env steps and the resets (every reset, the autoreset's and the
-    redraws' too, goes through ``reset_local``).  The counters are the
-    host's: no sync.  Also keeps the robots' beeps summed on the device
-    over the steps and the last step's (env, states, observation)."""
+    the env steps, the resets and the scenes they reset (every reset, the
+    autoreset's and the redraws' too, goes through ``reset_local``).  The
+    counters are the host's: no sync.  Also keeps the robots' beeps summed
+    on the device over the steps and the last step's (env, states,
+    observation)."""
 
     def __init__(self, per_step: dict):
         self.per_step = per_step
-        self.steps = self.resets = 0
+        self.steps = self.resets = self.reset_scenes = 0
         self.beeps = 0
         self.last = None
 
@@ -507,9 +508,10 @@ class StepLaunches:
             self.last = (env, out[0], out[1])
             return out
 
-        def counted_reset(env, *a, **kw):
+        def counted_reset(env, samples, *a, **kw):
             self.resets += 1
-            return reset(env, *a, **kw)
+            self.reset_scenes += len(samples)
+            return reset(env, samples, *a, **kw)
 
         BatchedNavEnv.step, BatchedNavEnv.reset_local = (counted_step,
                                                          counted_reset)

@@ -541,8 +541,9 @@ class NavEnv:
         # episode clearance field (static map + sampled obstacles), which
         # the MPC cost reads
         clip = int(min(256, max(64, math.ceil(2.0 / st.resolution))))
-        obs_edt = edt2d_device(obs_map < CELL_FREE_MIN, st.resolution,
-                               clip_cells=clip)
+        occupied = obs_map < CELL_FREE_MIN
+        with trace.span("reset.edt"):
+            obs_edt = edt2d_device(occupied, st.resolution, clip_cells=clip)
         return WorldState(
             robots=robots, peds=peds,
             crowd_aux=CrowdAuxState(

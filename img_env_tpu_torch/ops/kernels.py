@@ -28,7 +28,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("raster.cu", "fill.cu", "paint.cu", "pedmap.cu", "paint_block.cu")
+SOURCES = ("raster.cu", "fill.cu", "paint.cu", "pedmap.cu", "paint_block.cu",
+           "edt.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "paint_block": ("img_env_paint_blocks",
                     (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _P, _I, _P)),
+    "edt": ("img_env_edt", (_P, _I, _I, _I, _I, _F, _P)),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}

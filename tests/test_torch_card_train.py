@@ -127,8 +127,9 @@ def stage5_run(dev):
 
 def test_stage5_continuation(dev, stage5_run):
     """3 updates of unroll 16: 48 env steps, each launching K1-K4 once,
-    and each reset once more (K5 never); the loss terms finite; the mean
-    reward_mean at least REWARD_FLOOR; the parameters moved; the train
+    and each reset once more (K5 never), the EDT kernel once for every
+    scene reset; the loss terms finite; the mean reward_mean at least
+    REWARD_FLOOR; the parameters moved; the train
     state survives a checkpoint round trip bit for bit, and
     ``load_ckpt_policy`` acts from a saved checkpoint; K1-K4 bit-equal to
     their twins at the 32 scenes' last states."""
@@ -137,8 +138,10 @@ def test_stage5_continuation(dev, stage5_run):
 
     res, args, counted, launches = stage5_run
     assert counted.steps == cc.TRAIN_UPDATES * args.unroll
-    for k, c in launches.items():
-        assert c == (counted.steps + counted.resets if k in cc.CROWD else 0), k
+    want = dict.fromkeys(launches, 0)
+    want.update({k: counted.steps + counted.resets for k in cc.CROWD},
+                edt=counted.reset_scenes)
+    assert launches == want
     for m in res["metrics"]:
         for k in ("loss", "pg_loss", "vf_loss", "entropy"):
             assert bool(torch.isfinite(torch.as_tensor(m[k]))), (k, m)
@@ -303,7 +306,8 @@ def test_two_rank_batch(dev, tmp_path, monkeypatch):
     equals the unsharded batch on its scenes over the reset and 3 steps
     (sensor maps, lasers, angular maps and codes bit for bit, the vector
     fields within 1e-12), and launches K1 once, K2 and K3 once per sensor
-    group (2) and K4 once a step."""
+    group (2) and K4 once a step, and the EDT kernel never (no step
+    resets)."""
     from img_env_tpu_torch.utils import statics_cache
 
     monkeypatch.setenv(statics_cache.ENV_VAR, str(tmp_path))
@@ -312,7 +316,7 @@ def test_two_rank_batch(dev, tmp_path, monkeypatch):
     assert any(tmp_path.iterdir())
     runs = _ranks("card_batch_rank", (cc.MESH_SCENES, cc.MESH_STEPS))
     per_step = {"raster": 1, "fill": 2, "paint": 2, "pedmap": 1,
-                "paint_block": 0}
+                "paint_block": 0, "edt": 0}
     half = cc.MESH_SCENES // cc.MESH_RANKS
     for k, r in enumerate(runs):
         assert r["block"] == [k * half, (k + 1) * half]

@@ -19,6 +19,9 @@ maps, the sensor groups' in-scene ids and the fast grid, and on forced
 thresholds (no hits, hits at step 0, minor runs that make the warps
 walk); K4 on the bench200ped reset, forced ties, tiny and subnormal
 ranges, no ped in any window, 600 in each and 4 scenes x 50 robots.
+The reset's clearance field (csrc/edt.cu) on the stage-5, ERVO, bench200
+and BARN resets' maps and on degenerate ones, and its launches and device
+operations inside a redraw.
 
 These need an NVIDIA GPU and nvcc and skip without them.  On the machine
 with the card (which has no JAX) run them without the JAX test conftest:
@@ -804,3 +807,179 @@ def test_batched_orca_crowd_step_on_the_card(dev):
 
     batched = ops(states)
     assert 0 < batched <= 2000, batched
+
+
+# ---- the episode clearance field (csrc/edt.cu) ----
+
+def _artifact_cfg(name):
+    import json
+    import os
+
+    import img_env_tpu_torch
+
+    path = os.path.join(os.path.dirname(img_env_tpu_torch.__file__),
+                        "artifacts", name)
+    with open(path) as f:
+        return EnvConfig.from_dict(json.load(f))
+
+
+def _reset_clip(res):
+    """The clip a reset takes (``NavEnv.reset_from_sample``): 2 m in
+    cells, within [64, 256]."""
+    import math
+
+    return int(min(256, max(64, math.ceil(2.0 / res))))
+
+
+def _blobs(h, w, n, seed):
+    """n random discs and boxes of occupied cells in an [h, w] map."""
+    rng = np.random.default_rng(seed)
+    occ = np.zeros((h, w), bool)
+    ii, jj = np.mgrid[:h, :w]
+    for k in range(n):
+        ci, cj = rng.integers(0, h), rng.integers(0, w)
+        r = int(rng.integers(2, max(3, min(h, w) // 8)))
+        if k % 2:
+            occ |= (ii - ci) ** 2 + (jj - cj) ** 2 <= r * r
+        else:
+            occ[max(0, ci - r):ci + r, max(0, cj - r // 2):cj + r // 2] = True
+    return occ
+
+
+def _reset_map(dev, production, tmp_path, case):
+    """(occupied, resolution, clip, the reset's own field or None) of a
+    production reset's composed obstacle map, or a made-up map."""
+    from img_env_tpu_torch.constants import CELL_FREE_MIN
+    from img_env_tpu_torch.env.nav_env import NavEnv
+
+    if case in ("stage5", "ervo", "barn", "bench200"):
+        if case == "bench200":
+            env, state = production("bench200")
+        else:
+            if case == "barn":
+                from img_env_tpu_torch.datasets import barn
+                [world] = barn.generate_worlds(str(tmp_path), n=1, seed0=7)
+                cfg = EnvConfig.from_dict(barn.world_cfg_dict(world))
+            else:
+                cfg = _artifact_cfg(f"{case}_policy_env.json")
+            env = NavEnv(cfg, dev, seed=11)
+            state = env.reset()[0]
+        res = env.statics.resolution
+        return (state.obs_map < CELL_FREE_MIN, res, _reset_clip(res),
+                state.obs_edt)
+    one = np.zeros((40, 50), bool)
+    one[17, 23] = True
+    made = {
+        "empty": (np.zeros((40, 50), bool), 0.05, 16),
+        "one_cell": (one, 0.05, 16),
+        "full": (np.ones((30, 30), bool), 0.1, 8),
+        "narrow": (_blobs(60, 20, 4, 1), 0.05, 16),     # W < 2 clip + 1
+        "non_square": (_blobs(37, 91, 6, 2), 0.05, 24),
+        "clip64": (_blobs(200, 300, 12, 3), 0.015, 64),
+        "scenes": (np.stack([_blobs(733, 733, 20, s) for s in range(3)]),
+                   0.015, 134),
+        "tall": (_blobs(13000, 40, 30, 4), 0.05, 16),   # > 48 KB of rows
+        "wide": (_blobs(40, 13000, 30, 5), 0.05, 16),
+    }
+    occ, res, clip = made[case]
+    return torch.as_tensor(occ, device=dev), res, clip, None
+
+
+@pytest.mark.parametrize("case", [
+    "stage5", "ervo", "bench200", "barn", "empty", "one_cell", "full",
+    "narrow", "non_square", "clip64", "scenes", "tall", "wide"])
+def test_edt_kernel_matches_twin(dev, production, tmp_path, case):
+    """csrc/edt.cu equals its plain twin bit for bit on the card: on the
+    composed obstacle maps of stage-5, ERVO, bench200 and BARN resets (733²
+    and 1066² at clip 134, a BARN world at clip 64), where the reset's own
+    field is the kernel's; on an empty, a one-cell and a full map, a map
+    narrower than the row window, a non-square one, clip 64, three 733²
+    scenes in one launch, and maps whose rows or columns need more than
+    48 KB of shared memory; one launch call, two device kernels."""
+    from img_env_tpu_torch.mpc import edt
+    from img_env_tpu_torch.ops import kernels
+
+    occ, res, clip, field = _reset_map(dev, production, tmp_path, case)
+    before = kernels.LAUNCHES["edt"]
+    got = edt.edt2d_device(occ, res, clip_cells=clip)
+    assert kernels.LAUNCHES["edt"] == before + 1
+    want = edt.edt2d_twin(occ, res, clip)
+    assert got.dtype == torch.float32 and got.shape == occ.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if field is not None:
+        assert torch.equal(field.view(torch.int32), want.view(torch.int32))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        # a device operation ahead of the launch: the profiler may miss
+        # the first kernel of a profile taken after others in the process
+        torch.zeros(1, device=dev).add_(1)
+        edt.edt2d_device(occ, res, clip_cells=clip)
+        torch.cuda.synchronize()
+    names = [e.name().split("(")[0]
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA
+             and "edt_" in e.name()]
+    assert sorted(names) == ["edt_columns_kernel", "edt_rows_kernel"], names
+
+
+def test_edt_kernel_refuses_what_it_cannot_hold(dev):
+    """A row wider than a block's shared memory, a clip past float32's
+    exact squares and a non-bool map raise before any launch."""
+    from img_env_tpu_torch.mpc import edt
+    from img_env_tpu_torch.ops import kernels
+
+    before = kernels.LAUNCHES["edt"]
+    for occ, clip in ((torch.zeros((4, 60000), dtype=torch.bool,
+                                   device=dev), 16),
+                      (torch.zeros((8, 8), dtype=torch.bool, device=dev),
+                       edt.EDT_MAX_CLIP + 1),
+                      (torch.zeros((8, 8), dtype=torch.uint8, device=dev),
+                       4)):
+        with pytest.raises(ValueError):
+            edt.edt2d_device(occ, 0.05, clip_cells=clip)
+    assert kernels.LAUNCHES["edt"] == before
+
+
+@pytest.mark.parametrize("name", ["stage5", "ervo"])
+def test_reset_local_runs_the_edt_kernel(dev, name):
+    """A redraw of k scenes (``BatchedNavEnv.reset_local``) launches the
+    EDT kernel k times, counts k ``edt.kernel_scenes`` beside k
+    ``reset.scenes``, and issues two device operations, the kernel's, and
+    no ``roll`` inside each ``reset.edt`` span."""
+    from img_env_tpu_torch import BatchedNavEnv
+    from img_env_tpu_torch.ops import kernels
+    from img_env_tpu_torch.utils import trace
+
+    benv = BatchedNavEnv(_artifact_cfg(f"{name}_policy_env.json"), dev,
+                         seed=5)
+    benv.reset(2)
+    k = 3
+    samples = [benv.core.sample_scenario() for _ in range(k)]
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["edt"]
+    trace.enable()
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            benv.reset_local(samples)
+            torch.cuda.synchronize()
+        spans, counts = trace.drain()
+    finally:
+        trace.disable()
+    assert kernels.LAUNCHES["edt"] == before + k
+    assert counts["edt.kernel_scenes"] == counts["reset.scenes"] == k
+    events = list(prof.profiler.kineto_results.events())
+    on_card = lambda e: e.device_type() == torch.autograd.DeviceType.CUDA
+    calls = {e.correlation_id(): e.start_ns() for e in events
+             if not on_card(e) and e.name().startswith("cu")}
+    edt_spans = [(lo, hi) for s, _, lo, hi in spans if s == "reset.edt"]
+    assert len(edt_spans) == k
+    for lo, hi in edt_spans:
+        inside = [e.name() for e in events if on_card(e)
+                  and lo <= calls.get(e.correlation_id(), -1) <= hi]
+        assert len(inside) == 2 and all("edt_" in n for n in inside), inside
+        assert not [e.name() for e in events if not on_card(e)
+                    and "roll" in e.name() and lo <= e.start_ns() <= hi]

@@ -1,6 +1,6 @@
-"""K1-K5 alone at production shape on the card: device time per launch with
-the host's enqueue hidden, beside each kernel's least bytes and operations
-and the least time the card could take on them (its bound).
+"""K1-K5 and the EDT alone at production shape on the card: device time per
+launch with the host's enqueue hidden, beside each kernel's least bytes and
+operations and the least time the card could take on them (its bound).
 
     python3 tools/kernel_times.py [--out FILE]
 
@@ -8,11 +8,18 @@ The inputs are the card tests' (``card_common.py``): K1 (raster) on
 bench200's crowded poses (every odd robot on its even neighbour), K2
 (fill) on the packed map of those poses, K3 (paint) and K5 (block paint)
 on the thresholds of that fill's raycast, K4 (ped map) at the bench200ped
-reset with forced ties.  Prints one JSON line: the card's name and power
-limit, and per kernel its ms, bytes, operations, bound in µs, what bounds
-it (bytes at 3.35 TB/s or operations at 67 T/s, each input read once and
-each output written once) and its share (bound over time).  ``--out``
-writes the line to FILE too.  Needs a card.
+reset with forced ties; the EDT (csrc/edt.cu, which replaces no TPU kernel)
+on the composed obstacle maps of a stage-5 reset (733²) and bench200's
+(1066²), both at the resets' clip of 134 cells, with its plain twin's
+device ms beside it for the record.  Prints one JSON line: the card's name
+and power limit, and per kernel its ms, bytes, operations, bound in µs,
+what bounds it (bytes at 3.35 TB/s or operations at 67 T/s, each input read
+once and each output written once) and its share (bound over time).  The
+EDT's operations are an add and a min for each row candidate the clipped
+window needs at these inputs (offsets o with o² below the cell's squared
+distance, on both sides, beside the cell's own); ``full_window_us`` is the
+bound of the whole window, 2 clip + 1 candidates a cell.  ``--out`` writes
+the line to FILE too.  Needs a card.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import torch  # noqa: E402
 
 import card_common as cc  # noqa: E402
 from img_env_tpu_torch import EnvConfig, NavEnv  # noqa: E402
+from img_env_tpu_torch.constants import CELL_FREE_MIN  # noqa: E402
+from img_env_tpu_torch.mpc import edt  # noqa: E402
 from img_env_tpu_torch.ops import painter, pedmap, polar, raster  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
@@ -81,6 +90,20 @@ def pedmap_pairs(base, res: float, r_img: float, hs: int) -> int:
     in_x, in_y = pedmap.pixel_cover_bounds_exact(-px + half, -py + half, res,
                                                  r_img, hs)
     return int((in_x.sum(-1) * in_y.sum(-1) * in_win).sum())
+
+
+def edt_row(occ, res: float, clip: int) -> dict:
+    """The EDT kernel's row at this map, and its twin's device ms."""
+    d2 = edt.edt2d_sq_twin(occ, clip)
+    roots = torch.ceil(torch.sqrt(d2.double())) - 1    # o with o² < d2
+    needed = 1 + 2 * roots.clamp(0, clip)
+    out = row(cuda_ms(lambda: edt.edt2d_device(occ, res, clip_cells=clip),
+                      50),
+              occ.numel() * 5, 2 * float(needed.sum()))
+    out["full_window_us"] = (2 * occ.numel() * (2 * clip + 1)
+                             / FLAT_OPS_PER_S * 1e6)
+    out["twin_ms"] = cuda_ms(lambda: edt.edt2d_twin(occ, res, clip), 2)
+    return out
 
 
 def main() -> None:
@@ -137,6 +160,14 @@ def main() -> None:
         tb, s_hit, s_tail, pst.n_slots), 20),
         nbytes(s_hit, s_tail, *tb.blocks, v),
         4 * tests + tb.blocks[4].numel() + v.numel())
+
+    with open(cc.POLICY_ENV, encoding="utf-8") as f:
+        stage5 = NavEnv(EnvConfig.from_dict(json.load(f)))
+    res5 = stage5.statics.resolution
+    out["edt_733"] = edt_row(stage5.reset()[0].obs_map < CELL_FREE_MIN,
+                             res5, 134)
+    out["edt_1066"] = edt_row(state.obs_map < CELL_FREE_MIN, st.resolution,
+                              134)
 
     line = json.dumps({"card": cc.card_line(),
                        "device": torch.cuda.get_device_name(0),

@@ -37,6 +37,15 @@ the JAX package.  Draws come from an explicit ``torch.Generator``: the
 Gaussian noise of each env step, the reset layouts of the finished scenes
 and each epoch's permutation.  ``Draws`` injects them instead (the tests
 give the JAX package's draws; torch cannot reproduce threefry, F4).
+
+Spans (``utils/trace.py``; none synchronises): ``ppo.rollout`` holds each
+step's ``ppo.sample`` (the forward and the draw) and the env's own spans;
+``ppo.autoreset`` holds ``batch.reset_local``; ``ppo.update`` holds
+``ppo.gae`` (the last value's forward and GAE), each minibatch's
+``ppo.grads`` (forward, backward and the mesh's ``all_reduce``s) and
+``ppo.optim`` (clip and Adam).  Counters: ``ppo.samples`` (+T*S*N a
+rollout, this rank's), ``ppo.minibatches`` and ``ppo.reset_scenes`` (the
+scenes the autoreset found finished, from the mask it reads on the host).
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from img_env_tpu_torch.parallel.batched_env import BatchedNavEnv
 from img_env_tpu_torch.parallel.mesh import (MODEL_AXIS, SCENE_AXIS,
                                              tp_param_shardings)
 from img_env_tpu_torch.train import optim
+from img_env_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -375,24 +385,26 @@ def make_train_step(env: BatchedNavEnv, model: CrowdNavPolicy,
         each step draws the global S*N rows of noise and keeps its own."""
         traj: List[tuple] = []
         for t in range(cfg.unroll):
-            feats = obs_features(obs, use_ped)
-            out = policy_dist(params, feats)
-            e = None if eps is None else eps[t]
-            if mesh is not None:
-                b = out[0].shape[0]
-                if e is None:
-                    e = torch.randn(
-                        (env.global_scenes(b // n_rob) * n_rob,)
-                        + out[0].shape[1:], generator=generator,
-                        device=dev, dtype=out[0].dtype)
-                e = e[rows(b)]
-            # store the RAW Gaussian sample for the loss; only the env
-            # command is clipped
-            act, logp, value = sample_action(out, generator, e)
-            act_env = torch.clamp(act, lo, hi)
-            s, n = obs.vector_states.shape[:2]
-            act_sn = act_env.reshape(s, n, act_env.shape[-1])
-            actions = torch.cat([act_sn, act_sn.new_zeros((s, n, 1))], -1)
+            with trace.span("ppo.sample"):
+                feats = obs_features(obs, use_ped)
+                out = policy_dist(params, feats)
+                e = None if eps is None else eps[t]
+                if mesh is not None:
+                    b = out[0].shape[0]
+                    if e is None:
+                        e = torch.randn(
+                            (env.global_scenes(b // n_rob) * n_rob,)
+                            + out[0].shape[1:], generator=generator,
+                            device=dev, dtype=out[0].dtype)
+                    e = e[rows(b)]
+                # store the RAW Gaussian sample for the loss; only the env
+                # command is clipped
+                act, logp, value = sample_action(out, generator, e)
+                act_env = torch.clamp(act, lo, hi)
+                s, n = obs.vector_states.shape[:2]
+                act_sn = act_env.reshape(s, n, act_env.shape[-1])
+                actions = torch.cat([act_sn, act_sn.new_zeros((s, n, 1))],
+                                    -1)
             states, obs, reward, done, info = env.step(states, actions)
             if cfg.reward == "paper":
                 d = obs.vector_states.shape[-1]
@@ -408,6 +420,7 @@ def make_train_step(env: BatchedNavEnv, model: CrowdNavPolicy,
             traj.append((feats, act, logp, value,
                          reward.reshape(-1).to(value.dtype),
                          done.reshape(-1)))
+        trace.count("ppo.samples", cfg.unroll * act.shape[0])
         return states, obs, traj
 
     def autoreset(states, obs, generator, reset_samples):
@@ -428,6 +441,7 @@ def make_train_step(env: BatchedNavEnv, model: CrowdNavPolicy,
             flags[blk] = finished.to(torch.int32)
             finished = all_sum(flags, scene_group) > 0
         ids = torch.nonzero(finished.cpu()).flatten().tolist()
+        trace.count("ppo.reset_scenes", len(ids))
         if not ids:
             return states, obs, 0
         if reset_samples is not None:
@@ -486,8 +500,10 @@ def make_train_step(env: BatchedNavEnv, model: CrowdNavPolicy,
             [loss, aux["pg_loss"], aux["vf_loss"], aux["entropy"]]))
 
     def update(ts: TrainState, traj, obs, generator, perms):
-        last_value = policy_dist(ts.params, obs_features(obs, use_ped))[-1]
-        data, reward = rollout_data(traj, last_value, cfg)
+        with trace.span("ppo.gae"):
+            last_value = policy_dist(ts.params,
+                                     obs_features(obs, use_ped))[-1]
+            data, reward = rollout_data(traj, last_value, cfg)
         b_loc = reward.shape[1]
         tb = cfg.unroll * env.global_scenes(b_loc // n_rob) * n_rob
         n_mb = max(1, min(cfg.minibatches, tb))
@@ -499,9 +515,12 @@ def make_train_step(env: BatchedNavEnv, model: CrowdNavPolicy,
                     torch.randperm(tb, generator=generator, device=dev))
             idxs = perm[: mb_size * n_mb].reshape(n_mb, mb_size)
             for idx in idxs:
-                grads, m = minibatch_grads(params, data, idx)
-                updates, opt_state = tx.update(grads, opt_state, params)
-                params = optim.apply_updates(params, updates)
+                with trace.span("ppo.grads"):
+                    trace.count("ppo.minibatches")
+                    grads, m = minibatch_grads(params, data, idx)
+                with trace.span("ppo.optim"):
+                    updates, opt_state = tx.update(grads, opt_state, params)
+                    params = optim.apply_updates(params, updates)
                 ms.append(m)
         m = torch.stack(ms).mean(0)
         metrics = dict(zip(("loss", "pg_loss", "vf_loss", "entropy"), m))
@@ -526,26 +545,29 @@ def make_train_step(env: BatchedNavEnv, model: CrowdNavPolicy,
         """One PPO update: unroll -> autoreset -> GAE -> epochs x shuffled
         minibatches of clipped updates."""
         t0 = lap(timings)
-        states, obs, traj = rollout(ts.params, states, obs, generator,
-                                    None if draws is None else draws.eps)
-        # episode outcome rates at the end of the unroll, BEFORE scenes
-        # re-draw (the learning curve's signal)
-        r = states.robots
-        ep_stats = {
-            "arrive_rate": global_mean(r.arrive.to(torch.float32),
-                                       scene_group),
-            "collision_rate": global_mean(torch.clamp(
-                r.collision, 0, 1).to(torch.float32), scene_group),
-        }
+        with trace.span("ppo.rollout"):
+            states, obs, traj = rollout(ts.params, states, obs, generator,
+                                        None if draws is None else draws.eps)
+            # episode outcome rates at the end of the unroll, BEFORE scenes
+            # re-draw (the learning curve's signal)
+            r = states.robots
+            ep_stats = {
+                "arrive_rate": global_mean(r.arrive.to(torch.float32),
+                                           scene_group),
+                "collision_rate": global_mean(torch.clamp(
+                    r.collision, 0, 1).to(torch.float32), scene_group),
+            }
         t0 = lap(timings, "rollout", t0)
         n_reset = 0
         if cfg.autoreset:
-            states, obs, n_reset = autoreset(
-                states, obs, generator,
-                None if draws is None else draws.reset)
+            with trace.span("ppo.autoreset"):
+                states, obs, n_reset = autoreset(
+                    states, obs, generator,
+                    None if draws is None else draws.reset)
         t0 = lap(timings, "autoreset", t0)
-        ts, metrics = update(ts, traj, obs, generator,
-                             None if draws is None else draws.perms)
+        with trace.span("ppo.update"):
+            ts, metrics = update(ts, traj, obs, generator,
+                                 None if draws is None else draws.perms)
         lap(timings, "update", t0)
         metrics.update(ep_stats)
         metrics["reset_scenes"] = n_reset

@@ -1,0 +1,9 @@
+"""rollout_ms: host milliseconds a PPO update of its rollout (T env steps,
+each with the policy's forward and draw), as the trainer's own
+``timings`` give them (``train_step(timings=)``, which synchronises the
+device at each phase's boundary); read from the traced run's first half."""
+
+
+def read(ctx, suffix):
+    spans = ctx["spans"].get("rollout", [])
+    return sum(spans) / len(spans) if spans else None

@@ -1,9 +1,10 @@
 """The port's host spans and counters (``img_env_tpu_torch.utils.trace``):
 off by default and recording nothing then; the env step, the scene
-batch's step and redraw, the MPC act and the policy giving the same bits
-with tracing on and off; the span tree at the layer boundaries; the
-redraw, crowd and ORCA counters, and the ORCA spans of the ``rvoscene``
-and ``ervoscene`` crowds; ``drain`` clearing.  A small config with SFM
+batch's step and redraw, the MPC act, the policy and a PPO update giving
+the same bits with tracing on and off; the span tree at the layer
+boundaries; the redraw, crowd and ORCA counters, and the ORCA spans of the
+``rvoscene`` and ``ervoscene`` crowds; the PPO update's spans and
+counters; ``drain`` clearing.  A small config with SFM
 peds on the CPU (the kernels' twins).  Imports nothing of JAX."""
 
 import pytest
@@ -14,11 +15,13 @@ from img_env_tpu_torch.env.nav_env import NavEnv
 from img_env_tpu_torch.models.policy import (
     CrowdNavPolicy,
     PolicyConfig,
+    init_policy,
     mean_action_fn,
 )
 from img_env_tpu_torch.mpc.controller import MpcController
 from img_env_tpu_torch.mpc.mppi import MppiConfig
 from img_env_tpu_torch.parallel import BatchedNavEnv
+from img_env_tpu_torch.train.ppo import PpoConfig, make_train_step
 from img_env_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
@@ -92,8 +95,25 @@ def run_policy():
     return mean_action_fn(policy, cfg())(None, obs)
 
 
+PPO = PpoConfig(unroll=3, epochs=2, minibatches=2)
+
+
+def run_train_step():
+    """One PPO update of S scenes whose time limit (2 steps) ends within
+    the unroll, so that the autoreset redraws every scene."""
+    benv = BatchedNavEnv(EnvConfig.from_dict(dict(CFG, time_max=2)), "cpu",
+                         seed=5)
+    gen = torch.Generator().manual_seed(1)
+    model, params = init_policy(gen, PolicyConfig.from_env_config(benv.cfg),
+                                "cpu")
+    init_fn, train_step = make_train_step(benv, model, PPO)
+    states, obs = benv.reset(S)
+    return train_step(init_fn(params), states, obs, gen)
+
+
 RUNS = {"env_step": run_env_step, "batch_step_and_redraw": run_batch_step,
-        "act_scenes": run_act, "policy": run_policy}
+        "act_scenes": run_act, "policy": run_policy,
+        "train_step": run_train_step}
 
 
 def leaves(tree):
@@ -250,6 +270,35 @@ def test_orca_spans_and_counters(scene, on):
     assert segments >= 4 * 3 * S        # the 3 rectangles' edges, split
     assert counts == {"reset.scenes": S, "orca.segments": segments,
                       "crowd.scenes": S, "orca.agents": 2 * S}
+
+
+def test_ppo_span_tree_and_counters():
+    """``ppo.rollout`` holds each step's ``ppo.sample`` and the env's
+    spans, ``ppo.autoreset`` the redraw, ``ppo.update`` the GAE and each
+    minibatch's ``ppo.grads`` and ``ppo.optim``; the counters read T*S*N
+    samples, epochs x minibatches and the metrics' ``reset_scenes``."""
+    trace.enable()
+    *_, metrics = run_train_step()
+    spans, counts = trace.drain()
+    tree = tree_of(spans)
+    for name in ("ppo.rollout", "ppo.autoreset", "ppo.update"):
+        assert tree[name] == {None}
+    assert tree["ppo.sample"] == {"ppo.rollout"}
+    assert tree["env.step"] == {"ppo.rollout"}
+    assert tree["batch.reset_local"] == {None, "ppo.autoreset"}
+    for name in ("ppo.gae", "ppo.grads", "ppo.optim"):
+        assert tree[name] == {"ppo.update"}
+    names = [s[0] for s in spans]
+    assert names.count("ppo.sample") == names.count("env.step") == PPO.unroll
+    n_mb = PPO.epochs * PPO.minibatches
+    assert names.count("ppo.grads") == names.count("ppo.optim") == n_mb
+    assert names.count("ppo.gae") == 1
+    n_rob = CFG["robot"]["total"]
+    assert metrics["reset_scenes"] == S
+    assert counts["ppo.samples"] == PPO.unroll * S * n_rob
+    assert counts["ppo.minibatches"] == n_mb
+    assert counts["ppo.reset_scenes"] == metrics["reset_scenes"]
+    assert counts["reset.scenes"] == 2 * S      # the first reset, the redraw
 
 
 def test_mpc_span_tree():

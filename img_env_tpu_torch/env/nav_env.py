@@ -29,7 +29,9 @@ Ported: robots and obstacles, pedestrians with the ``pedscene`` (SFM),
 pipeline on a view grid coarsened by ``fast_sensor_scale``).
 ``sensor_mode='reference'`` raises ``NotImplementedError``.  ``step_fn``
 and the observation make no host syncs; the reset does (the sampler's
-retries, the segment split).
+retries, the segment split).  On a CUDA device the step (advance, observe,
+finish: ``step_scenes``) replays as one CUDA graph per shape
+(``env/step_graph.py``).
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ from img_env_tpu_torch.env.sampler import (
     obstacle_corners,
     sample_scenario_retry,
 )
+from img_env_tpu_torch.env.step_graph import StepGraphs
 from img_env_tpu_torch.mpc.edt import edt2d_device
 from img_env_tpu_torch.ops import f32
 from img_env_tpu_torch.ops import painter as painter_mod
@@ -430,6 +433,7 @@ class NavEnv:
         self.static_map = torch.as_tensor(st.static_map, device=dev)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
+        self._graphs = StepGraphs()
 
     def _group_tables(self, gi: int, g: SensorGroup) -> GroupTables:
         """Sensor group ``gi``'s device tables: its polar tables with its
@@ -615,9 +619,38 @@ class NavEnv:
         """actions: [N,3] (v, w, v_y/beep).  ``beep_u``: optional [N]
         uniform draw for the beep response (default: the generator)."""
         with trace.span("env.step"):
-            new_state, alive, beeps = self.advance_fn(state, actions, beep_u)
-            new_state, obs = self._observe(new_state)
-            return self.finish_step(new_state, obs, alive, beeps)
+            new_state, obs, reward, done, info = self.step_scenes(
+                _add_scene_axis(state), actions[None],
+                None if beep_u is None else beep_u[None])
+            return (_drop_scene_axis(new_state),
+                    map_tree(lambda x: x[0], obs), reward[0], done[0],
+                    {k: v[0] for k, v in info.items()})
+
+    def step_scenes(self, states: WorldState, actions, beep_u=None):
+        """``step_fn`` over S scenes (states with a leading [S] axis,
+        actions [S, N, 3], beep_u [S, N]): advance, observe and finish.  On
+        a CUDA device the three replay as one CUDA graph per shape
+        (``env/step_graph.py``): the same kernels on the same data, so the
+        same bits.  The beep draw the eager step makes from the generator
+        (``crowd_common.sample_beeps``) is made here, before the graph, and
+        passed in."""
+        if self.device.type != "cuda":
+            return self._step_scenes(states, actions, beep_u)
+        drawn = beep_u is None
+        if drawn:
+            pose = states.robots.pose
+            s, n = pose.shape[:2]
+            beep_u = torch.rand(s * n, generator=self.generator,
+                                device=pose.device,
+                                dtype=pose.dtype).reshape(s, n)
+        return self._graphs(self._step_scenes, (states, actions, beep_u),
+                            drawn)
+
+    def _step_scenes(self, states: WorldState, actions, beep_u=None):
+        """The eager step of S scenes (``step_scenes``)."""
+        states, alive, beeps = self.advance_scenes(states, actions, beep_u)
+        states, obs = self.observe_scenes(states)
+        return self.finish_step(states, obs, alive, beeps)
 
     @staticmethod
     def finish_step(new_state, obs: Observation, alive, beeps):

@@ -43,9 +43,10 @@ class BatchedNavEnv:
     reset(samples or S) -> (states, obs)      # every leaf gains a leading S
     step(states, actions [S,N,3]) -> (states, obs, reward [S,N], done, info)
 
-    ``legacy_vmap=True`` steps the scenes one by one through the
-    single-scene ``NavEnv`` (the port's own reference for the flat path,
-    as the JAX package vmaps its whole single-scene step).  ``mesh``
+    ``legacy_vmap=True`` steps the scenes one by one, eagerly (the port's
+    own reference for the flat path, as the JAX package vmaps its whole
+    single-scene step); the flat path replays a CUDA graph on the card
+    (``NavEnv.step_scenes``).  ``mesh``
     shards the scene axis over the mesh's scene ranks: ``reset`` takes the
     global scenes and keeps this rank's block, and states, observations
     and actions are this rank's block.
@@ -130,19 +131,21 @@ class BatchedNavEnv:
                     f"it takes all {s_all} global scenes")
             beep_u = beep_u[self.block(s_all)]
         if self.legacy_vmap:
-            outs = [core.step_fn(
-                map_tree(lambda x, k=k: x[k], states), actions[k],
-                None if beep_u is None else beep_u[k])
+            if self.device.type == "cuda":
+                trace.count("env.eager_steps")
+            outs = [core._step_scenes(
+                map_tree(lambda x, k=k: x[k:k + 1], states),
+                actions[k:k + 1],
+                None if beep_u is None else beep_u[k:k + 1])
                 for k in range(actions.shape[0])]
-            return (stack_trees([o[0] for o in outs]),
-                    stack_trees([o[1] for o in outs]),
-                    torch.stack([o[2] for o in outs]),
-                    torch.stack([o[3] for o in outs]),
-                    {key: torch.stack([o[4][key] for o in outs])
+            cat = lambda *xs: torch.cat(xs)
+            return (map_tree(cat, *[o[0] for o in outs]),
+                    map_tree(cat, *[o[1] for o in outs]),
+                    torch.cat([o[2] for o in outs]),
+                    torch.cat([o[3] for o in outs]),
+                    {key: torch.cat([o[4][key] for o in outs])
                      for key in outs[0][4]})
-        states, alive, beeps = core.advance_scenes(states, actions, beep_u)
-        states, obs = core.observe_scenes(states)
-        return core.finish_step(states, obs, alive, beeps)
+        return core.step_scenes(states, actions, beep_u)
 
 
 def rollout_with_obs(env: BatchedNavEnv, states, obs, steps: int,

@@ -18,6 +18,9 @@ idle gap can be matched to the host span it fell in.  A span never
 synchronises the device: its time is the host's, the enqueue of what it
 launches.  Nothing is written anywhere; whoever turned tracing on reads it
 with ``drain()``.  ``self_ns`` gives each span's time less its children's.
+Inside ``diverted()`` counts go to a dict of the caller's, tracing on or
+off: a CUDA graph's capture records what each replay counts again
+(``env/step_graph.py``).
 
 The recorder is one per process and not thread-safe: the env, the
 controller and the policy run on one host thread.
@@ -25,6 +28,7 @@ controller and the policy run on one host thread.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 
@@ -50,6 +54,7 @@ class _Recorder:
         self.spans = []         # [name, parent, start_ns, end_ns]
         self.open = []          # indices of the spans not yet closed
         self.counts = {}
+        self.divert = None      # while set, counts go here (``diverted``)
 
 
 _REC = _Recorder()
@@ -106,8 +111,24 @@ def spanned(name: str):
 
 def count(name: str, n: int = 1) -> None:
     """Adds ``n`` to counter ``name`` while tracing is on."""
-    if _REC.on:
-        _REC.counts[name] = _REC.counts.get(name, 0) + int(n)
+    rec = _REC
+    if rec.divert is not None:
+        rec.divert[name] = rec.divert.get(name, 0) + int(n)
+    elif rec.on:
+        rec.counts[name] = rec.counts.get(name, 0) + int(n)
+
+
+@contextlib.contextmanager
+def diverted():
+    """Yields a dict that receives every count made inside the block,
+    tracing on or off, in place of the recorder: what a CUDA graph's
+    capture counts, which each replay then adds with ``count``."""
+    rec = _REC
+    saved, rec.divert = rec.divert, {}
+    try:
+        yield rec.divert
+    finally:
+        rec.divert = saved
 
 
 def drain():

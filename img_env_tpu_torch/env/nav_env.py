@@ -976,9 +976,12 @@ class NavEnv:
               dataset=None):
         return self.reset_fn(sample, carry, dataset)
 
-    def step(self, state, actions):
+    def step(self, state, actions, beep_u=None):
+        """``step_fn`` with ``actions`` made a tensor on the device;
+        ``beep_u``: optional [N] uniform draw for the beep response."""
         return self.step_fn(state, torch.as_tensor(actions,
-                                                   device=self.device))
+                                                   device=self.device),
+                            beep_u)
 
 
 def _add_scene_axis(state: WorldState) -> WorldState:

@@ -12,6 +12,9 @@ and shares the prediction across all K candidate rollouts:
              far waypoint on the ped's heading (crowd/sfm.py).
 
 The robots' influence is left out (robots are the decision variables).
+While tracing is on, each crowd-model step of a head ('orca', 'sfm')
+counts ``predict.solves`` +1 and ``predict.agents`` +M; 'cv' counts
+nothing.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from img_env_tpu_torch.crowd import orca as orca_mod
 from img_env_tpu_torch.crowd import sfm as sfm_mod
+from img_env_tpu_torch.utils import trace
 
 
 def predict_cv(pos, vel, horizon: int, dt: float):
@@ -50,6 +54,8 @@ def predict_orca(pos, vel, vmax, horizon: int, orca_cfg, segments=None,
             pos, vel, orca_mod.pref_velocity(pos, goals), radius, vmax, valid,
             no_robots, no_robots, valid[:0], orca_cfg, seg)
         traj.append(pos)
+    trace.count("predict.solves", horizon)
+    trace.count("predict.agents", horizon * m)
     return torch.stack(traj)
 
 
@@ -74,6 +80,8 @@ def predict_sfm(pos, vel, vmax, horizon: int, dt: float,
         pos, vel, wp = sfm_mod.sfm_step(pos, vel, vmax, valid, wp, seg, seg,
                                         seg_valid, dt)
         traj.append(pos)
+    trace.count("predict.solves", horizon)
+    trace.count("predict.agents", horizon * m)
     return torch.stack(traj)
 
 

@@ -91,6 +91,11 @@ def disable() -> None:
     _REC.on = False
 
 
+def enabled() -> bool:
+    """Whether tracing is on."""
+    return _REC.on
+
+
 def span(name: str):
     """A context manager timing ``name`` on the host while tracing is on."""
     return _Span(name) if _REC.on else _OFF

@@ -338,6 +338,26 @@ def test_one_scene_act_and_policy_spans():
     assert tree["policy.forward"] == {None}
 
 
+@pytest.mark.parametrize("head", ["orca", "sfm", "cv"])
+def test_prediction_head_counters(head):
+    """A one-scene act counts each crowd-model step of its head inside
+    ``mpc.predict``: ``predict.solves`` H and ``predict.agents`` H·M with
+    'orca' and 'sfm'; 'cv' steps no crowd model and counts nothing."""
+    env = NavEnv(cfg(), "cpu", seed=5)
+    state, _ = env.reset()
+    ctl = MpcController(env, MPPI, ped_prediction=head, seed=7)
+    trace.enable()
+    ctl.act(state, ctl.init_state())
+    spans, counts = trace.drain()
+    assert tree_of(spans)["mpc.predict"] == {"mpc.act"}
+    predict = {k: v for k, v in counts.items() if k.startswith("predict.")}
+    m = CFG["ped_sim"]["total"]
+    want = ({} if head == "cv" else
+            {"predict.solves": MPPI.horizon,
+             "predict.agents": MPPI.horizon * m})
+    assert predict == want
+
+
 def test_spans_nest_in_time_and_self_time():
     trace.enable()
     run_batch_step()
